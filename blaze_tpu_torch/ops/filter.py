@@ -1,0 +1,49 @@
+"""Filter: predicate -> deferred selection vector.
+
+Reference counterpart: DataFusion FilterExec (from_proto.rs:193-201;
+wrapper NativeFilterExec.scala). As in the JAX package (ops/filter.py),
+the predicate result is ANDed into the batch's selection mask and
+compaction is deferred to the next pipeline breaker, so shapes stay at
+their bucket and no host sync happens per batch.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+from blaze_tpu_torch.types import Schema
+from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs.optimize import bind_opt
+from blaze_tpu_torch.exprs.eval import DeviceEvaluator
+from blaze_tpu_torch.exprs.typing import expr_computes_wide_decimal
+from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.ops.project import batch_cvs
+
+
+class FilterExec(PhysicalOp):
+    def __init__(self, child: PhysicalOp, predicate: ir.Expr):
+        self.children = [child]
+        self.predicate = bind_opt(predicate, child.schema)
+        if expr_computes_wide_decimal(self.predicate, child.schema):
+            raise NotImplementedError(
+                "predicates on decimal(>18) wait for ROADMAP "
+                "'Modules to port': expressions and types"
+            )
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, partition: int, ctx: ExecContext
+                ) -> Iterator[ColumnBatch]:
+        for cb in self.children[0].execute(partition, ctx):
+            yield self._filter(cb)
+
+    def _filter(self, cb: ColumnBatch) -> ColumnBatch:
+        ev = DeviceEvaluator(cb.schema, batch_cvs(cb), cb.capacity,
+                             cb.device)
+        keep = ev.evaluate_predicate(self.predicate)
+        if cb.selection is not None:
+            keep = keep & cb.selection
+        return ColumnBatch(cb.schema, cb.columns, cb.num_rows, keep)

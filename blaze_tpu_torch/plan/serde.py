@@ -1,0 +1,364 @@
+"""Encode/decode between the protobuf wire schema (plan.proto) and the
+engine's operator/expression objects.
+
+Mirror of the reference's two-sided serde: the Scala builders
+(NativeConverters.scala convertExpr / Native*Exec proto emission) and the
+Rust decoder (`TryInto<Arc<dyn ExecutionPlan>>`, from_proto.rs:162-560).
+The wire format is the JAX package's, unchanged: TaskDefinition bytes
+from either package decode in the other. This slice carries the
+parquet_scan, filter, project and hash_aggregate arms; every other plan
+arm raises NotImplementedError naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+from blaze_tpu_torch.types import DataType, Field, Schema, TypeId
+from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs.ir import AggFn, Op
+from blaze_tpu_torch.plan import plan_pb2 as pb
+from blaze_tpu_torch.ops.base import PhysicalOp
+from blaze_tpu_torch.ops.filter import FilterExec
+from blaze_tpu_torch.ops.hash_aggregate import AggMode, HashAggregateExec
+from blaze_tpu_torch.ops.parquet_scan import FileRange, ParquetScanExec
+from blaze_tpu_torch.ops.project import ProjectExec
+
+_ROADMAP_OPS = "ROADMAP 'Modules to port'"
+
+# ---------------------------------------------------------------------------
+# types
+# ---------------------------------------------------------------------------
+
+_TID_TO_PB = {
+    TypeId.NULL: pb.NULL,
+    TypeId.BOOL: pb.BOOL,
+    TypeId.INT8: pb.INT8,
+    TypeId.INT16: pb.INT16,
+    TypeId.INT32: pb.INT32,
+    TypeId.INT64: pb.INT64,
+    TypeId.FLOAT32: pb.FLOAT32,
+    TypeId.FLOAT64: pb.FLOAT64,
+    TypeId.UTF8: pb.UTF8,
+    TypeId.BINARY: pb.BINARY,
+    TypeId.DATE32: pb.DATE32,
+    TypeId.TIMESTAMP_US: pb.TIMESTAMP_US,
+    TypeId.DECIMAL: pb.DECIMAL,
+}
+_PB_TO_TID = {v: k for k, v in _TID_TO_PB.items()}
+
+
+def dtype_to_proto(dt: DataType) -> pb.DataTypeProto:
+    return pb.DataTypeProto(
+        id=_TID_TO_PB[dt.id], precision=dt.precision, scale=dt.scale
+    )
+
+
+def dtype_from_proto(p: pb.DataTypeProto) -> DataType:
+    return DataType(_PB_TO_TID[p.id], p.precision, p.scale)
+
+
+def schema_to_proto(s: Schema) -> pb.SchemaProto:
+    return pb.SchemaProto(
+        fields=[
+            pb.FieldProto(
+                name=f.name, dtype=dtype_to_proto(f.dtype),
+                nullable=f.nullable,
+            )
+            for f in s
+        ]
+    )
+
+
+def schema_from_proto(p: pb.SchemaProto) -> Schema:
+    return Schema(
+        [
+            Field(f.name, dtype_from_proto(f.dtype), f.nullable)
+            for f in p.fields
+        ]
+    )
+
+
+# ---------------------------------------------------------------------------
+# expressions
+# ---------------------------------------------------------------------------
+
+_OP_TO_PB = {
+    Op.ADD: pb.ADD, Op.SUB: pb.SUB, Op.MUL: pb.MUL, Op.DIV: pb.DIV,
+    Op.MOD: pb.MOD, Op.EQ: pb.EQ, Op.NEQ: pb.NEQ, Op.LT: pb.LT,
+    Op.LTE: pb.LTE, Op.GT: pb.GT, Op.GTE: pb.GTE, Op.AND: pb.AND,
+    Op.OR: pb.OR, Op.BITAND: pb.BITAND, Op.BITOR: pb.BITOR,
+    Op.BITXOR: pb.BITXOR, Op.SHL: pb.SHL, Op.SHR: pb.SHR,
+}
+_PB_TO_OP = {v: k for k, v in _OP_TO_PB.items()}
+
+_AGG_TO_PB = {
+    AggFn.MIN: pb.MIN, AggFn.MAX: pb.MAX, AggFn.SUM: pb.SUM,
+    AggFn.AVG: pb.AVG, AggFn.COUNT: pb.COUNT,
+    AggFn.COUNT_STAR: pb.COUNT_STAR, AggFn.VAR_SAMP: pb.VAR_SAMP,
+    AggFn.VAR_POP: pb.VAR_POP, AggFn.STDDEV_SAMP: pb.STDDEV_SAMP,
+    AggFn.STDDEV_POP: pb.STDDEV_POP, AggFn.FIRST: pb.FIRST,
+    AggFn.LAST: pb.LAST,
+}
+_PB_TO_AGG = {v: k for k, v in _AGG_TO_PB.items()}
+
+_INT_LIKE = {
+    TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64,
+    TypeId.DATE32, TypeId.TIMESTAMP_US, TypeId.DECIMAL,
+}
+
+
+def expr_to_proto(e: ir.Expr) -> pb.ExprProto:
+    p = pb.ExprProto()
+    if isinstance(e, ir.Col):
+        p.column = e.name
+    elif isinstance(e, ir.BoundCol):
+        p.bound_column = e.index
+        p.bound_dtype.CopyFrom(dtype_to_proto(e.dtype))
+    elif isinstance(e, ir.Literal):
+        lit = p.literal
+        lit.dtype.CopyFrom(dtype_to_proto(e.dtype))
+        if e.value is None:
+            lit.is_null = True
+        elif e.dtype.id is TypeId.BOOL:
+            lit.bool_value = bool(e.value)
+        elif e.dtype.id in _INT_LIKE:
+            lit.int_value = int(e.value)
+        elif e.dtype.id in (TypeId.FLOAT32, TypeId.FLOAT64):
+            lit.float_value = float(e.value)
+        elif e.dtype.id is TypeId.UTF8:
+            lit.string_value = e.value
+        elif e.dtype.id is TypeId.BINARY:
+            lit.bytes_value = e.value
+        else:
+            raise NotImplementedError(f"literal {e.dtype}")
+    elif isinstance(e, ir.Cast):
+        p.cast.child.CopyFrom(expr_to_proto(e.child))
+        p.cast.to.CopyFrom(dtype_to_proto(e.to))
+    elif isinstance(e, ir.BinaryOp):
+        p.binary.op = _OP_TO_PB[e.op]
+        p.binary.left.CopyFrom(expr_to_proto(e.left))
+        p.binary.right.CopyFrom(expr_to_proto(e.right))
+    elif isinstance(e, ir.Not):
+        p.logical_not.CopyFrom(expr_to_proto(e.child))
+    elif isinstance(e, ir.Negate):
+        p.negate.CopyFrom(expr_to_proto(e.child))
+    elif isinstance(e, ir.IsNull):
+        p.is_null.CopyFrom(expr_to_proto(e.child))
+    elif isinstance(e, ir.IsNotNull):
+        p.is_not_null.CopyFrom(expr_to_proto(e.child))
+    elif isinstance(e, ir.InList):
+        p.in_list.child.CopyFrom(expr_to_proto(e.child))
+        for v in e.values:
+            p.in_list.values.append(expr_to_proto(v))
+        p.in_list.negated = e.negated
+    elif isinstance(e, ir.If):
+        p.if_.cond.CopyFrom(expr_to_proto(e.cond))
+        p.if_.then.CopyFrom(expr_to_proto(e.then))
+        p.if_.otherwise.CopyFrom(expr_to_proto(e.otherwise))
+    elif isinstance(e, ir.CaseWhen):
+        for c, r in e.branches:
+            b = p.case_.branches.add()
+            b.cond.CopyFrom(expr_to_proto(c))
+            b.result.CopyFrom(expr_to_proto(r))
+        if e.otherwise is not None:
+            p.case_.otherwise.CopyFrom(expr_to_proto(e.otherwise))
+    elif isinstance(e, ir.ScalarFn):
+        p.scalar_fn.name = e.name
+        for a in e.args:
+            p.scalar_fn.args.append(expr_to_proto(a))
+    elif isinstance(e, ir.Coalesce):
+        for a in e.args:
+            p.coalesce.args.append(expr_to_proto(a))
+    elif isinstance(e, ir.AggExpr):
+        p.agg.fn = _AGG_TO_PB[e.fn]
+        if e.child is not None:
+            p.agg.child.CopyFrom(expr_to_proto(e.child))
+    else:
+        raise NotImplementedError(type(e))
+    return p
+
+
+def expr_from_proto(p: pb.ExprProto) -> ir.Expr:
+    kind = p.WhichOneof("kind")
+    if kind == "column":
+        return ir.Col(p.column)
+    if kind == "bound_column":
+        return ir.BoundCol(p.bound_column, dtype_from_proto(p.bound_dtype))
+    if kind == "literal":
+        lit = p.literal
+        dt = dtype_from_proto(lit.dtype)
+        if lit.is_null:
+            return ir.Literal(None, dt)
+        return ir.Literal(getattr(lit, lit.WhichOneof("value")), dt)
+    if kind == "cast":
+        return ir.Cast(
+            expr_from_proto(p.cast.child), dtype_from_proto(p.cast.to)
+        )
+    if kind == "binary":
+        return ir.BinaryOp(
+            _PB_TO_OP[p.binary.op],
+            expr_from_proto(p.binary.left),
+            expr_from_proto(p.binary.right),
+        )
+    if kind == "logical_not":
+        return ir.Not(expr_from_proto(p.logical_not))
+    if kind == "negate":
+        return ir.Negate(expr_from_proto(p.negate))
+    if kind == "is_null":
+        return ir.IsNull(expr_from_proto(p.is_null))
+    if kind == "is_not_null":
+        return ir.IsNotNull(expr_from_proto(p.is_not_null))
+    if kind == "in_list":
+        return ir.InList(
+            expr_from_proto(p.in_list.child),
+            tuple(expr_from_proto(v) for v in p.in_list.values),
+            p.in_list.negated,
+        )
+    if kind == "if_":
+        return ir.If(
+            expr_from_proto(p.if_.cond),
+            expr_from_proto(p.if_.then),
+            expr_from_proto(p.if_.otherwise),
+        )
+    if kind == "case_":
+        return ir.CaseWhen(
+            tuple(
+                (expr_from_proto(b.cond), expr_from_proto(b.result))
+                for b in p.case_.branches
+            ),
+            expr_from_proto(p.case_.otherwise)
+            if p.case_.HasField("otherwise")
+            else None,
+        )
+    if kind == "scalar_fn":
+        return ir.ScalarFn(
+            p.scalar_fn.name,
+            tuple(expr_from_proto(a) for a in p.scalar_fn.args),
+        )
+    if kind == "coalesce":
+        return ir.Coalesce(
+            tuple(expr_from_proto(a) for a in p.coalesce.args)
+        )
+    if kind == "agg":
+        return ir.AggExpr(
+            _PB_TO_AGG[p.agg.fn],
+            expr_from_proto(p.agg.child)
+            if p.agg.HasField("child")
+            else None,
+        )
+    raise NotImplementedError(kind)
+
+
+# ---------------------------------------------------------------------------
+# plans
+# ---------------------------------------------------------------------------
+
+_MODE_TO_PB = {
+    AggMode.PARTIAL: pb.PARTIAL, AggMode.FINAL: pb.FINAL,
+    AggMode.COMPLETE: pb.COMPLETE,
+}
+_PB_TO_MODE = {v: k for k, v in _MODE_TO_PB.items()}
+
+
+def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
+    kind = p.WhichOneof("kind")
+    if kind == "parquet_scan":
+        ps = p.parquet_scan
+        groups = [
+            [FileRange(fr.path, fr.start, fr.length) for fr in g.files]
+            for g in ps.file_groups
+        ]
+        schema = (
+            schema_from_proto(ps.schema) if ps.schema.fields else None
+        )
+        projection = (
+            [schema.fields[i].name for i in ps.projection]
+            if ps.projection and schema
+            else (schema.names() if schema else None)
+        )
+        pruning = (
+            expr_from_proto(ps.pruning_predicate)
+            if ps.HasField("pruning_predicate")
+            else None
+        )
+        return ParquetScanExec(groups, schema, projection, pruning)
+    if kind == "project":
+        return ProjectExec(
+            plan_from_proto(p.project.input),
+            [
+                (expr_from_proto(ne.expr), ne.name)
+                for ne in p.project.exprs
+            ],
+        )
+    if kind == "filter":
+        return FilterExec(
+            plan_from_proto(p.filter.input),
+            expr_from_proto(p.filter.predicate),
+        )
+    if kind == "hash_aggregate":
+        h = p.hash_aggregate
+        return HashAggregateExec(
+            plan_from_proto(h.input),
+            keys=[(expr_from_proto(k.expr), k.name) for k in h.keys],
+            aggs=[(expr_from_proto(a.expr), a.name) for a in h.aggs],
+            mode=_PB_TO_MODE[h.mode],
+        )
+    raise NotImplementedError(
+        f"plan node {kind!r} waits for {_ROADMAP_OPS}"
+    )
+
+
+def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
+    p = pb.PlanProto()
+    if isinstance(op, ParquetScanExec):
+        ps = p.parquet_scan
+        for g in op.file_groups:
+            gp = ps.file_groups.add()
+            for fr in g:
+                gp.files.add(path=fr.path, start=fr.start,
+                             length=fr.length)
+        ps.schema.CopyFrom(schema_to_proto(op.schema))
+        if op.pruning_predicate is not None:
+            ps.pruning_predicate.CopyFrom(
+                expr_to_proto(op.pruning_predicate)
+            )
+    elif isinstance(op, ProjectExec):
+        p.project.input.CopyFrom(plan_to_proto(op.children[0]))
+        for e, name in op.exprs:
+            p.project.exprs.add(expr=expr_to_proto(e), name=name)
+    elif isinstance(op, FilterExec):
+        p.filter.input.CopyFrom(plan_to_proto(op.children[0]))
+        p.filter.predicate.CopyFrom(expr_to_proto(op.predicate))
+    elif isinstance(op, HashAggregateExec):
+        h = p.hash_aggregate
+        h.input.CopyFrom(plan_to_proto(op.children[0]))
+        for e, name in op.keys:
+            h.keys.add(expr=expr_to_proto(e), name=name)
+        for a, name in op.aggs:
+            h.aggs.add(expr=expr_to_proto(a), name=name)
+        h.mode = _MODE_TO_PB[op.mode]
+    else:
+        raise NotImplementedError(
+            f"plan node {type(op).__name__} waits for {_ROADMAP_OPS}"
+        )
+    return p
+
+
+def task_to_proto(op: PhysicalOp, partition: int,
+                  task_id: str = "task") -> bytes:
+    t = pb.TaskDefinitionProto(partition=partition, task_id=task_id)
+    t.plan.CopyFrom(plan_to_proto(op))
+    return t.SerializeToString()
+
+
+def task_from_proto(data: bytes):
+    """(op, partition, task_id) from TaskDefinition bytes.
+    File resources feed IpcReader leaves, which wait for ROADMAP
+    'Modules to port' item 6 (exchange tier)."""
+    t = pb.TaskDefinitionProto()
+    t.ParseFromString(data)
+    if len(t.file_resources):
+        raise NotImplementedError(
+            "task file resources (IpcReader inputs) wait for ROADMAP "
+            "'Modules to port' item 6 (exchange tier)"
+        )
+    return plan_from_proto(t.plan), t.partition, t.task_id

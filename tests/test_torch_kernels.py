@@ -1,0 +1,219 @@
+"""Kernels K1 (masked statistics) and K2 (compaction permutation) of the
+PyTorch port, held against the JAX package on the CPU.
+
+On the CPU the port's wrappers take their plain PyTorch versions (the
+CUDA kernels run only on the card, where chip_smoke.py holds them
+against the same plain versions). Each kernel is compared with both
+the Pallas kernel it replaces (interpret mode) and the jnp code the JAX
+package's live path runs. Inputs come from seeded numpy generators.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from blaze_tpu.ops.hash_aggregate import _SegOps
+from blaze_tpu.ops.kernels import compact_pallas, stats_pallas
+from blaze_tpu.ops.util import _compact_indices
+
+from blaze_tpu_torch.ops.kernels import _build, compact, stats
+
+CAP = 4096
+
+
+def _k1_case(name, dtype, rng, n=CAP):
+    """(values, mask) host arrays for one named case."""
+    if np.issubdtype(dtype, np.floating):
+        v = ((rng.random(n) - 0.5) * 2000).astype(dtype)
+    else:
+        v = rng.integers(-1000, 1000, n).astype(dtype)
+    m = rng.random(n) < 0.6
+    if name == "nan":
+        v[rng.integers(0, n, 4)] = np.nan
+        m[:] = True
+    elif name == "inf":
+        v[rng.integers(0, n, 3)] = np.inf
+        v[rng.integers(0, n, 3)] = -np.inf
+    elif name == "all_masked":
+        m[:] = False
+    elif name == "all_kept":
+        m[:] = True
+    elif name == "wrap":
+        v = rng.integers(2 ** 62, 2 ** 63 - 1, n, dtype=np.int64)
+        m[:] = True
+    return v, m
+
+
+def _port_stats(v, m):
+    s, lo, hi, c = stats.masked_stats(torch.from_numpy(v),
+                                      torch.from_numpy(m))
+    return s.numpy()[0], lo.numpy()[0], hi.numpy()[0], int(c.numpy()[0])
+
+
+def _same(a, b):
+    """Exact equality, NaN equal to NaN."""
+    return bool(np.isnan(a) and np.isnan(b)) or a == b
+
+
+PALLAS_CASES = [
+    (np.float32, "random"), (np.float32, "nan"), (np.float32, "inf"),
+    (np.float32, "all_masked"), (np.float32, "all_kept"),
+    (np.int32, "random"), (np.int32, "all_kept"),
+]
+
+
+@pytest.mark.parametrize("dtype,name", PALLAS_CASES,
+                         ids=[f"{d.__name__}-{n}" for d, n in PALLAS_CASES])
+def test_k1_matches_pallas_interpret(dtype, name):
+    """K1 against stats_pallas.masked_stats in interpret mode: rtol 1e-5
+    on the sum for the Pallas kernel's f32 partials (as in
+    test_pallas_kernels.py), exact min/max/count."""
+    rng = np.random.default_rng(11)
+    v, m = _k1_case(name, dtype, rng)
+    ref = np.asarray(stats_pallas.masked_stats(
+        jnp.asarray(v), jnp.asarray(m), interpret=True))
+    s, lo, hi, c = _port_stats(v, m)
+    assert c == int(ref[3])
+    if name == "nan":
+        assert np.isnan(s) and np.isnan(ref[0])
+    elif name == "inf" and not np.isfinite(ref[0]):
+        assert (np.isnan(s) and np.isnan(ref[0])) or s == ref[0]
+    else:
+        np.testing.assert_allclose(s, ref[0], rtol=1e-5, atol=1e-3)
+    if c:
+        assert _same(np.float64(lo), ref[1]) and _same(np.float64(hi), ref[2])
+    elif dtype == np.float32:
+        # empty selection: the identities (+inf, -inf)
+        assert lo == np.inf and hi == -np.inf
+        assert ref[1] == np.inf and ref[2] == -np.inf
+
+
+SEGOPS_CASES = [
+    (d, n)
+    for d in (np.float32, np.float64, np.int32, np.int64)
+    for n in ("random", "nan", "inf", "all_masked", "all_kept")
+    if np.issubdtype(d, np.floating) or n in ("random", "all_masked",
+                                              "all_kept")
+] + [(np.int64, "wrap")]
+
+
+@pytest.mark.parametrize("dtype,name", SEGOPS_CASES,
+                         ids=[f"{d.__name__}-{n}" for d, n in SEGOPS_CASES])
+def test_k1_matches_keyless_segops(dtype, name):
+    """K1 against the jnp reductions the JAX keyless aggregate runs
+    (`_SegOps.scalar` over the masked acc/contrib of `_agg_state`):
+    ints, counts and min/max exact, float64 sums within 1e-12 * sum|x|."""
+    rng = np.random.default_rng(12)
+    v, m = _k1_case(name, dtype, rng)
+    seg = _SegOps(None, 1, True)
+    jv, jm = jnp.asarray(v), jnp.asarray(m)
+    st = jnp.float64 if np.issubdtype(dtype, np.floating) else jnp.int64
+    exp_sum = np.asarray(seg.sum(jnp.where(jm, jv, 0).astype(st)))[0]
+    if np.issubdtype(dtype, np.floating):
+        lo_n, hi_n = jnp.inf, -jnp.inf
+    else:
+        lo_n, hi_n = np.iinfo(dtype).max, np.iinfo(dtype).min
+    exp_lo = np.asarray(seg.min(jnp.where(jm, jv, jnp.asarray(lo_n, dtype))))
+    exp_hi = np.asarray(seg.max(jnp.where(jm, jv, jnp.asarray(hi_n, dtype))))
+    exp_cnt = int(np.asarray(seg.sum(jm.astype(jnp.int64)))[0])
+    s, lo, hi, c = _port_stats(v, m)
+    assert c == exp_cnt
+    assert _same(lo, exp_lo[0]) and _same(hi, exp_hi[0])
+    assert lo.dtype == v.dtype and hi.dtype == v.dtype
+    if np.issubdtype(dtype, np.floating):
+        assert s.dtype == np.float64
+        if np.isfinite(exp_sum):
+            tol = 1e-12 * np.abs(v[m].astype(np.float64)).sum()
+            assert abs(s - exp_sum) <= tol
+        else:
+            assert _same(s, exp_sum)
+    else:
+        assert s.dtype == np.int64 and s == exp_sum
+
+
+def _k2_masks(rng, n):
+    return {
+        "p30": rng.random(n) < 0.3,
+        "all_kept": np.ones(n, bool),
+        "none_kept": np.zeros(n, bool),
+        "tail_only": np.arange(n) >= n - 5,
+    }
+
+
+@pytest.mark.parametrize("name", ["p30", "all_kept", "none_kept",
+                                  "tail_only"])
+def test_k2_matches_pallas_compact_perm(name):
+    """K2 against compact_pallas.compact_perm (interpret mode on the
+    CPU): the live prefix and the count agree exactly."""
+    keep = _k2_masks(np.random.default_rng(13), CAP)[name]
+    ref_src, ref_n = compact_pallas.compact_perm(jnp.asarray(keep))
+    src, n = compact.compact_perm(torch.from_numpy(keep))
+    n = int(n[0])
+    assert n == int(ref_n)
+    np.testing.assert_array_equal(src.numpy()[:n],
+                                  np.asarray(ref_src)[:n])
+    assert src.dtype == torch.int32
+
+
+@pytest.mark.parametrize("cap", [256, 1000, CAP])
+def test_k2_matches_compact_indices(cap):
+    """K2 against ops/util._compact_indices, the function it stands in
+    for: the whole array (0-filled tail included) and the count."""
+    rng = np.random.default_rng(14)
+    for keep in _k2_masks(rng, cap).values():
+        ref_idx, ref_n = _compact_indices(jnp.asarray(keep), cap)
+        src, n = compact.compact_perm(torch.from_numpy(keep))
+        np.testing.assert_array_equal(src.numpy().astype(np.int64),
+                                      np.asarray(ref_idx))
+        assert int(n[0]) == int(ref_n)
+
+
+def test_k2_gather_is_bit_exact_for_nonfinite():
+    """Columns move through the permutation by index_select: NaN
+    payloads, infinities and -0.0 survive bit for bit."""
+    rng = np.random.default_rng(15)
+    v = (rng.random(CAP) * 10).astype(np.float32)
+    v[[3, 70, 900]] = [np.nan, np.inf, -0.0]
+    keep = rng.random(CAP) < 0.5
+    keep[[3, 70, 900]] = True
+    src, n = compact.compact_perm(torch.from_numpy(keep))
+    got = torch.index_select(torch.from_numpy(v), 0, src)[: int(n[0])]
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  v[keep].view(np.uint32))
+
+
+def test_wrappers_reject_bad_inputs():
+    with pytest.raises(TypeError):
+        stats.masked_stats(torch.zeros(8, dtype=torch.float16),
+                           torch.ones(8, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        stats.masked_stats(torch.zeros(8), torch.ones(8))
+    with pytest.raises(ValueError):
+        stats.masked_stats(torch.zeros(8), torch.ones(4, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        compact.compact_perm(torch.ones(8, dtype=torch.int32))
+
+
+def test_cpu_tensors_never_count_launches():
+    """The launch counters count CUDA launches only."""
+    before = (stats.LAUNCHES, compact.LAUNCHES)
+    stats.masked_stats(torch.ones(16), torch.ones(16, dtype=torch.bool))
+    compact.compact_perm(torch.ones(16, dtype=torch.bool))
+    assert (stats.LAUNCHES, compact.LAUNCHES) == before
+
+
+def test_build_failure_raises(monkeypatch, tmp_path):
+    """Without nvcc the build raises; nothing degrades to the plain
+    versions. Library names carry the source hash."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("stats")
+    p1 = _build.library_path("stats")
+    p2 = _build.library_path("compact")
+    assert p1.name.startswith("libstats-") and p1 != p2
+    assert p1 == _build.library_path("stats")

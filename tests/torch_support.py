@@ -1,0 +1,56 @@
+"""Shared helpers for the PyTorch port's differential tests
+(tests/test_torch_*.py): Arrow equality with NaN equal to NaN, and
+identical batches for both packages built from numpy buffers."""
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.types as pat
+
+
+def assert_arrow_equal(a, b):
+    """Same names, types, nulls and values; NaN equals NaN."""
+    assert a.schema.names == b.schema.names, (a.schema, b.schema)
+    assert a.num_rows == b.num_rows
+    for name, ca, cb in zip(a.schema.names, a.columns, b.columns):
+        if isinstance(ca, pa.ChunkedArray):
+            ca = ca.combine_chunks()
+        if isinstance(cb, pa.ChunkedArray):
+            cb = cb.combine_chunks()
+        assert ca.type == cb.type, (name, ca.type, cb.type)
+        np.testing.assert_array_equal(
+            np.asarray(ca.is_null()), np.asarray(cb.is_null()), err_msg=name)
+        if pat.is_floating(ca.type):
+            np.testing.assert_array_equal(
+                ca.fill_null(0).to_numpy(), cb.fill_null(0).to_numpy(),
+                err_msg=name)
+        else:
+            assert ca.equals(cb), name
+
+
+def jax_schema(schema):
+    """The blaze_tpu Schema of a blaze_tpu_torch Schema."""
+    from blaze_tpu.types import DataType, Field, Schema, TypeId
+
+    return Schema([
+        Field(f.name, DataType(TypeId(f.dtype.id.value), f.dtype.precision,
+                               f.dtype.scale), f.nullable)
+        for f in schema
+    ])
+
+
+def jax_batch(schema, values, validity, selection, num_rows):
+    """A blaze_tpu ColumnBatch over the same padded numpy buffers that
+    blaze_tpu_torch.interop.batch_from_numpy takes. `schema` is a
+    blaze_tpu_torch Schema."""
+    import jax.numpy as jnp
+
+    from blaze_tpu.batch import Column, ColumnBatch
+
+    js = jax_schema(schema)
+    cols = [
+        Column(f.dtype, jnp.asarray(v),
+               None if m is None else jnp.asarray(m))
+        for f, v, m in zip(js, values, validity)
+    ]
+    sel = None if selection is None else jnp.asarray(selection)
+    return ColumnBatch(js, cols, num_rows, sel)
