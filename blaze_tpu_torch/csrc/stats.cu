@@ -51,17 +51,21 @@ template <> struct Lim<int64_t> {
   __device__ static int64_t hi() { return INT64_MAX; }
 };
 
-// NaN-propagating min/max (a NaN operand wins); for integers the NaN
-// tests fold away.
+// NaN-propagating min/max (a NaN operand wins), with -0.0 below +0.0
+// whatever the order of the rows (as jnp.min / jnp.max); for integers
+// the NaN and sign tests fold away.
+template <typename T> __device__ __forceinline__ bool neg_bit(T) { return false; }
+__device__ __forceinline__ bool neg_bit(float x) { return signbit(x); }
+__device__ __forceinline__ bool neg_bit(double x) { return signbit(x); }
 template <typename T> __device__ __forceinline__ T min_nan(T a, T b) {
   if (a != a) return a;
   if (b != b) return b;
-  return b < a ? b : a;
+  return (b < a || (b == a && neg_bit(b))) ? b : a;
 }
 template <typename T> __device__ __forceinline__ T max_nan(T a, T b) {
   if (a != a) return a;
   if (b != b) return b;
-  return b > a ? b : a;
+  return (b > a || (b == a && !neg_bit(b))) ? b : a;
 }
 
 // Sum state: double for floats, unsigned 64-bit (wrapping) for ints.

@@ -1,6 +1,6 @@
-"""Physical operators of the port: scans, filter, project and the
-keyless hash aggregate (the first slice's path). Operators stream
-ColumnBatches per partition and compute eagerly on the task's device.
+"""Physical operators of the port: scans, filter, project and the hash
+aggregate, keyless and keyed. Operators stream ColumnBatches per
+partition and compute eagerly on the task's device.
 """
 
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp

@@ -1,33 +1,39 @@
-"""Hash aggregate, keyless: PARTIAL / FINAL / COMPLETE modes.
+"""Hash aggregate: PARTIAL / FINAL / COMPLETE, keyless and keyed.
 
 Reference counterpart: DataFusion AggregateExec built from proto
 (from_proto.rs:452-545) with Spark's two-phase mode mapping
-(NativeHashAggregateExec.scala:98-161). This slice ports the keyless
-(global) aggregate of the JAX package's ops/hash_aggregate.py for
-COUNT, COUNT(*), SUM, AVG, MIN and MAX over fixed-width non-decimal
-input (MIN/MAX/COUNT also take decimal(<=18)). Grouping keys, decimal
-SUM/AVG, FIRST/LAST and the variance family wait for ROADMAP
-'Modules to port' item 3 (grouped_agg with kernel K3) and raise
-NotImplementedError at construction.
+(NativeHashAggregateExec.scala:98-161). A port of the JAX package's
+ops/hash_aggregate.py for COUNT, COUNT(*), SUM, AVG, MIN, MAX, FIRST,
+LAST and the variance family over fixed-width input. Decimal SUM/AVG
+(chunked 128-bit states) and string keys raise NotImplementedError at
+construction, naming the ROADMAP item that brings them.
 
-The keyless case is one group, so every state is a masked reduction.
-Kernel K1 (ops/kernels/stats.py) gives the sum, min, max and non-null
-count of a column in one launch, where the JAX package runs two or
-three reductions (`_SegOps.scalar`). States are (1,)-shaped device
-tensors; they stay on the device across batches and leave it once, at
-the end of the stream.
+Keyless: one group, so every state is a masked reduction. Kernel K1
+(ops/kernels/stats.py) gives a column's sum, min, max and non-null count
+in one launch. States are (1,)-shaped device tensors.
 
-A COMPLETE aggregate whose input exceeds `max_materialize_rows` folds
-per-batch PARTIAL states and merges them with one FINAL pass (the
-keyless branch of the JAX package's `_execute_external`,
-hash_aggregate.py:503-538); smaller inputs are concatenated and
-aggregated once.
+Keyed: the JAX package's scatter core. Rows take raw hash-table slots
+(ops/hash_table.group_slots: direct indexing for one narrow integer key,
+else exact-key open addressing); every reduction runs on kernel K3
+(ops/kernels/segreduce.py) over the table's slot domain, and only the
+per-group results are gathered at the occupied slots (compacted by K2,
+ops/util.occupied_slots), in slot order - the JAX package's group order.
+Group keys come out of each group's first row. The table is sized by
+the group-capacity ladder (`run_grouped_kernel` in the JAX package):
+4096 group slots, then 65,536, then unsliced; more groups
+than a tier holds, or a probe loop cut off by its round bound, climb to
+the next tier.
+
+A COMPLETE or FINAL input over `max_materialize_rows` rows: keyless, it
+folds per-batch PARTIAL states and merges them once (the keyless branch
+of the JAX package's `_execute_external`); keyed, the JAX package's
+grace aggregation needs the exchange tier, so the port raises.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,15 +45,27 @@ from blaze_tpu_torch.exprs.optimize import bind_opt
 from blaze_tpu_torch.exprs.ir import AggExpr, AggFn
 from blaze_tpu_torch.exprs.eval import DeviceEvaluator
 from blaze_tpu_torch.exprs.typing import infer_dtype
+from blaze_tpu_torch.ops import hash_table as ht
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.external import collect_until
+from blaze_tpu_torch.ops.kernels import segreduce
 from blaze_tpu_torch.ops.kernels.stats import masked_stats
 from blaze_tpu_torch.ops.project import batch_cvs
-from blaze_tpu_torch.ops.util import concat_batches
+from blaze_tpu_torch.ops.util import concat_batches, occupied_slots
+from blaze_tpu_torch.runtime.dispatch import host_int
 
-_ROADMAP_GROUPED = "ROADMAP 'Modules to port' item 3 (grouped_agg, K3)"
-_SUPPORTED = (AggFn.COUNT, AggFn.COUNT_STAR, AggFn.SUM, AggFn.AVG,
-              AggFn.MIN, AggFn.MAX)
+_ROADMAP_DECIMAL = ("ROADMAP 'Modules to port' item 3 (decimal SUM/AVG "
+                    "states, with decimal128)")
+_ROADMAP_STRINGS = ("ROADMAP 'Modules to port' item 3 (dictionary-encoded "
+                    "strings)")
+_ROADMAP_GRACE = ("ROADMAP 'Modules to port' item 6 (exchange tier: keyed "
+                  "grace aggregation)")
+_VARIANCE = (AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
+             AggFn.STDDEV_POP)
+# first and second tiers of the group-capacity ladder (the JAX package's
+# defaults for BLAZE_AGG_TIER1 and agg_group_capacity)
+_TIER1_GROUPS = 4096
+_TIER2_GROUPS = 65536
 
 
 class AggMode(enum.Enum):
@@ -87,16 +105,25 @@ def _state_fields(agg: AggExpr, name: str, in_schema: Schema) -> List[Field]:
     ct = infer_dtype(agg.child, in_schema)
     if fn is AggFn.SUM:
         return [Field(f"{name}#sum", _sum_type(ct), True)]
-    if fn in (AggFn.MIN, AggFn.MAX):
+    if fn in (AggFn.MIN, AggFn.MAX, AggFn.FIRST, AggFn.LAST):
         return [Field(f"{name}#{fn.value}", ct, True)]
-    return [  # AVG
-        Field(f"{name}#sum", _sum_type(ct), True),
-        Field(f"{name}#count", DataType.int64(), False),
+    if fn is AggFn.AVG:
+        return [
+            Field(f"{name}#sum", _sum_type(ct), True),
+            Field(f"{name}#count", DataType.int64(), False),
+        ]
+    # var/stddev family: plain-summable moments
+    return [
+        Field(f"{name}#n", DataType.float64(), False),
+        Field(f"{name}#s1", DataType.float64(), False),
+        Field(f"{name}#s2", DataType.float64(), False),
     ]
 
 
 def _state_width(fn: AggFn) -> int:
-    return 2 if fn is AggFn.AVG else 1
+    if fn is AggFn.AVG:
+        return 2
+    return 3 if fn in _VARIANCE else 1
 
 
 def _result_type(a: AggExpr, in_schema: Schema, mode: AggMode) -> DataType:
@@ -104,10 +131,19 @@ def _result_type(a: AggExpr, in_schema: Schema, mode: AggMode) -> DataType:
         # child is a BoundCol at the first state column (see __init__)
         if a.fn in (AggFn.COUNT, AggFn.COUNT_STAR):
             return DataType.int64()
-        if a.fn is AggFn.AVG:
+        if a.fn is AggFn.AVG or a.fn in _VARIANCE:
             return DataType.float64()
         return a.child.dtype
     return infer_dtype(a, in_schema)
+
+
+def _check_input_type(what: str, dt: DataType) -> None:
+    if dt.is_string_like:
+        raise NotImplementedError(f"{what} over {dt} waits for "
+                                  f"{_ROADMAP_STRINGS}")
+    if dt.is_wide_decimal:
+        raise NotImplementedError(f"{what} over {dt} waits for "
+                                  f"{_ROADMAP_DECIMAL}")
 
 
 def _stats(values: torch.Tensor, mask: torch.Tensor):
@@ -121,6 +157,84 @@ def _stats(values: torch.Tensor, mask: torch.Tensor):
     return s, lo.to(src), hi.to(src), cnt
 
 
+class _Reductions:
+    """Per-group masked reductions of one batch. `sum` (in float64 or
+    int64) and `extreme` take the rows where `contrib` holds;
+    `count(mask)` counts them. A count that a reduction already produced
+    for the same mask is reused, not relaunched."""
+
+    def __init__(self):
+        self._counts: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def count(self, mask: torch.Tensor) -> torch.Tensor:
+        for m, c in self._counts:
+            if m is mask:
+                return c
+        c = self._count(mask)
+        self._counts.append((mask, c))
+        return c
+
+
+class _Scalar(_Reductions):
+    """Keyless: one group; K1 gives sum, min, max and count at once."""
+
+    def _count(self, mask):
+        return mask.sum(dtype=torch.int64).reshape(1)
+
+    def _k1(self, v, contrib):
+        s, lo, hi, cnt = _stats(v, contrib)
+        if all(m is not contrib for m, _ in self._counts):
+            self._counts.append((contrib, cnt))
+        return s, lo, hi
+
+    def sum(self, v, contrib):
+        return self._k1(v, contrib)[0]
+
+    def extreme(self, is_min: bool, v, contrib):
+        _, lo, hi = self._k1(v, contrib)
+        return lo if is_min else hi
+
+
+class _SegOps(_Reductions):
+    """Keyed: K3 over the raw table-slot domain; the (domain,)-sized
+    results are gathered at the occupied slots (`_finish`). Dead rows
+    keep arbitrary in-range slots: every reduction masks them to its
+    neutral element first."""
+
+    def __init__(self, gid: torch.Tensor, domain: int,
+                 compact_slots: torch.Tensor):
+        super().__init__()
+        self.gid = gid
+        self.domain = domain
+        self.compact_slots = compact_slots
+
+    def _finish(self, r):
+        return torch.index_select(r, 0, self.compact_slots)
+
+    def _count(self, mask):
+        return self.sum(mask.to(torch.int64), mask)
+
+    def sum(self, v, contrib):
+        # sums accumulate in the state type, float64 or int64
+        v = v.to(torch.float64 if v.dtype.is_floating_point
+                 else torch.int64)
+        acc = torch.where(contrib, v, torch.zeros((), dtype=v.dtype,
+                                                  device=v.device))
+        return self._finish(segreduce.segment_sum(self.gid, acc,
+                                                  self.domain))
+
+    def extreme(self, is_min: bool, v, contrib):
+        src = v.dtype
+        if src in (torch.bool, torch.int8, torch.int16):
+            v = v.to(torch.int32)
+        op = "min" if is_min else "max"
+        acc = torch.where(contrib, v, torch.full(
+            (), segreduce.neutral(op, v.dtype), dtype=v.dtype,
+            device=v.device))
+        red = segreduce.segment_min if is_min else segreduce.segment_max
+        return self._finish(red(self.gid, acc, self.domain)).to(src)
+
+
 class HashAggregateExec(PhysicalOp):
     def __init__(
         self,
@@ -129,28 +243,26 @@ class HashAggregateExec(PhysicalOp):
         aggs: Sequence[Tuple[AggExpr, str]],
         mode: AggMode = AggMode.COMPLETE,
     ):
-        if keys:
-            raise NotImplementedError(
-                f"grouping keys wait for {_ROADMAP_GROUPED}")
         self.children = [child]
         self.mode = mode
-        self.keys: List = []
         in_schema = child.schema
-        for a, _ in aggs:
-            if a.fn not in _SUPPORTED:
-                raise NotImplementedError(
-                    f"{a.fn.value} waits for {_ROADMAP_GROUPED}")
+        self.keys = [(bind_opt(e, in_schema), n) for e, n in keys]
+        key_fields = [Field(n, infer_dtype(e, in_schema), True)
+                      for e, n in self.keys]
+        for f in key_fields:
+            _check_input_type("group key", f.dtype)
         if mode is AggMode.FINAL:
-            # states are located positionally in the partial output, in
-            # agg order (NativeHashAggregateExec.scala:98-161)
+            # states are located positionally in the partial output, keys
+            # first, then states in agg order
+            # (NativeHashAggregateExec.scala:98-161)
             self.aggs = []
             self._final_widths: List[int] = []
-            pos = 0
+            pos = len(self.keys)
             for a, n in aggs:
                 first_state = in_schema.fields[pos]
                 if "#dsum" in first_state.name:
                     raise NotImplementedError(
-                        f"decimal SUM/AVG states wait for {_ROADMAP_GROUPED}")
+                        f"decimal SUM/AVG states wait for {_ROADMAP_DECIMAL}")
                 self.aggs.append(
                     (AggExpr(a.fn, ir.BoundCol(pos, first_state.dtype)), n))
                 self._final_widths.append(_state_width(a.fn))
@@ -165,20 +277,19 @@ class HashAggregateExec(PhysicalOp):
                 if a.child is None:
                     continue
                 ct = infer_dtype(a.child, in_schema)
-                if ct.is_string_like or ct.is_wide_decimal or (
-                    ct.id is TypeId.DECIMAL
-                    and a.fn in (AggFn.SUM, AggFn.AVG)
-                ):
+                _check_input_type(a.fn.value, ct)
+                if ct.id is TypeId.DECIMAL and a.fn in (AggFn.SUM,
+                                                        AggFn.AVG):
                     raise NotImplementedError(
                         f"{a.fn.value} over {ct} waits for "
-                        f"{_ROADMAP_GROUPED}")
+                        f"{_ROADMAP_DECIMAL}")
         if mode is AggMode.PARTIAL:
             fields: List[Field] = []
             for a, n in self.aggs:
                 fields += _state_fields(a, n, in_schema)
-            self._schema = Schema(fields)
+            self._schema = Schema(key_fields + fields)
         else:
-            self._schema = Schema([
+            self._schema = Schema(key_fields + [
                 Field(n, _result_type(a, in_schema, mode), True)
                 for a, n in self.aggs
             ])
@@ -193,18 +304,26 @@ class HashAggregateExec(PhysicalOp):
         child_it = self.children[0].execute(partition, ctx)
         if self.mode is AggMode.PARTIAL:
             for cb in child_it:
-                yield self._aggregate_batch(cb)
+                out = self._aggregate_batch(cb)
+                if out.num_rows > 0:
+                    yield out
             return
         batches, exceeded = collect_until(
             child_it, ctx.config.max_materialize_rows
         )
         if exceeded:
+            if self.keys:
+                raise NotImplementedError(
+                    f"a keyed {self.mode.value} aggregate over more than "
+                    f"{ctx.config.max_materialize_rows} rows waits for "
+                    f"{_ROADMAP_GRACE}")
             yield from self._execute_external(batches, child_it, ctx)
             return
         cb = concat_batches(batches, self.children[0].schema, ctx.device)
         if cb.num_rows == 0:
-            # global aggregate over empty input still emits one row
-            yield _empty_global_row(self, ctx.device)
+            if not self.keys:
+                # global aggregate over empty input still emits one row
+                yield _empty_global_row(self, ctx.device)
             return
         yield self._aggregate_batch(cb)
 
@@ -240,65 +359,149 @@ class HashAggregateExec(PhysicalOp):
 
     # ------------------------------------------------------------------
     def _aggregate_batch(self, cb: ColumnBatch) -> ColumnBatch:
-        """One state (or result) row from the batch's live rows."""
+        """The state (or result) rows of the batch's live rows: one row
+        keyless, one per group keyed."""
         live = cb.live_mask()
         cols = batch_cvs(cb)
         ev = DeviceEvaluator(cb.schema, cols, cb.capacity, cb.device)
-        outs: List = []
-        pos = 0
+        if self.keys:
+            outs, red, n = self._group(ev, live, cb.capacity)
+        else:
+            outs, red, n = [], _Scalar(), 1
+        pos = len(self.keys)
         for i, (a, _) in enumerate(self.aggs):
             if self.mode is AggMode.FINAL:
                 width = self._final_widths[i]
-                outs.extend(self._merge_states(a, cols[pos: pos + width],
-                                               live))
+                outs.extend(_merge_states(
+                    a, cols[pos: pos + width], live, red, cb.capacity))
                 pos += width
             else:
-                outs.extend(self._agg_state(a, ev, live))
+                outs.extend(_agg_state(a, ev, live, red, cb.capacity,
+                                       self.mode))
         out_cols = [
             Column(f.dtype, v.to(torch_dtype(f.dtype)), m)
             for (v, m), f in zip(outs, self._schema.fields)
         ]
-        return ColumnBatch(self._schema, out_cols, 1)
+        return ColumnBatch(self._schema, out_cols, n)
 
-    def _agg_state(self, a: AggExpr, ev: DeviceEvaluator,
-                   live: torch.Tensor):
-        """(value, validity) state/result columns for one aggregate over
-        raw input rows."""
-        fn = a.fn
-        if fn is AggFn.COUNT_STAR:
-            return [(live.sum(dtype=torch.int64).reshape(1), None)]
-        cv, cm = ev.evaluate(a.child)
-        contrib = live if cm is None else live & cm
-        if fn is AggFn.COUNT:
-            return [(contrib.sum(dtype=torch.int64).reshape(1), None)]
-        s, lo, hi, cnt = _stats(cv, contrib)
-        any_v = cnt > 0
-        if fn is AggFn.MIN:
-            return [(lo, any_v)]
-        if fn is AggFn.MAX:
-            return [(hi, any_v)]
+    def _group(self, ev: DeviceEvaluator, live: torch.Tensor,
+               capacity: int):
+        """Group slots under the group-capacity ladder; returns the key
+        output columns, the keyed reductions and the group count."""
+        keys_cv = [ev.evaluate(e) for e, _ in self.keys]
+        gcap = min(capacity, _TIER2_GROUPS)
+        if gcap >= capacity:
+            tiers: List[Optional[int]] = [None]
+        elif gcap <= _TIER1_GROUPS:
+            tiers = [gcap, None]
+        else:
+            tiers = [_TIER1_GROUPS, gcap, None]
+        full_t = ht.table_size_for(capacity)
+        for gc in tiers:
+            out_cap = capacity if gc is None else gc
+            tsize = min(ht.table_size_for(min(capacity, 2 * out_cap)),
+                        full_t)
+            slot, rep_tab, overflow = ht.group_slots(
+                keys_cv, live, capacity, tsize,
+                max_rounds=16 if tsize < full_t else None)
+            occupied = rep_tab != capacity
+            n_groups = torch.where(
+                overflow, torch.full((), out_cap + 1, dtype=torch.int64,
+                                     device=live.device),
+                occupied.sum(dtype=torch.int64))
+            n = host_int(n_groups, "n_groups")
+            if gc is None or n <= gc:
+                break
+        occ = occupied_slots(occupied, out_cap)
+        # each group's first row carries its key values
+        bpos = torch.index_select(rep_tab, 0, occ).clamp(0, capacity - 1)
+        outs = [
+            (torch.index_select(v, 0, bpos),
+             torch.index_select(m, 0, bpos) if m is not None else None)
+            for v, m in keys_cv
+        ]
+        red = _SegOps(slot.to(torch.int32), tsize, occ)
+        return outs, red, n
+
+
+def _agg_state(a: AggExpr, ev: DeviceEvaluator, live: torch.Tensor,
+               red: _Reductions, capacity: int, mode: AggMode):
+    """(value, validity) state/result columns for one aggregate over
+    raw input rows."""
+    fn = a.fn
+    if fn is AggFn.COUNT_STAR:
+        return [(red.count(live), None)]
+    cv, cm = ev.evaluate(a.child)
+    contrib = live if cm is None else live & cm
+    if fn is AggFn.COUNT:
+        return [(red.count(contrib), None)]
+    if fn in (AggFn.SUM, AggFn.AVG):
+        s = red.sum(cv, contrib)
+        cnt = red.count(contrib)
         if fn is AggFn.SUM:
-            return [(s, any_v)]
-        if self.mode is AggMode.PARTIAL:  # AVG
-            return [(s, any_v), (cnt, None)]
-        return [(s / cnt.clamp(min=1).to(torch.float64), any_v)]
+            return [(s, cnt > 0)]
+        if mode is AggMode.PARTIAL:
+            return [(s, cnt > 0), (cnt, None)]
+        return [(s / cnt.clamp(min=1).to(torch.float64), cnt > 0)]
+    if fn in (AggFn.MIN, AggFn.MAX):
+        return [(red.extreme(fn is AggFn.MIN, cv, contrib),
+                 red.count(contrib) > 0)]
+    if fn in (AggFn.FIRST, AggFn.LAST):
+        return [_first_last(fn, cv, contrib, red, capacity)]
+    # var/stddev family: moments
+    x = cv.to(torch.float64)
+    n = red.count(contrib).to(torch.float64)
+    s1 = red.sum(x, contrib)
+    s2 = red.sum(x * x, contrib)
+    if mode is AggMode.PARTIAL:
+        return [(n, None), (s1, None), (s2, None)]
+    return [_finalize_var(fn, n, s1, s2)]
 
-    def _merge_states(self, a: AggExpr, states, live: torch.Tensor):
-        """FINAL: merge PARTIAL state columns into the result column."""
-        fn = a.fn
-        v, m = states[0]
-        contrib = live if m is None else live & m
-        if fn in (AggFn.COUNT, AggFn.COUNT_STAR):
-            s, _, _, _ = _stats(v, live)
-            return [(s, None)]
-        if fn is AggFn.AVG:
-            s, _, _, _ = _stats(v, contrib)
-            c, _, _, _ = _stats(states[1][0], live)
-            return [(s.to(torch.float64) / c.clamp(min=1).to(torch.float64),
-                     c > 0)]
-        s, lo, hi, cnt = _stats(v, contrib)
-        out = {AggFn.SUM: s, AggFn.MIN: lo, AggFn.MAX: hi}[fn]
-        return [(out, cnt > 0)]
+
+def _merge_states(a: AggExpr, states, live: torch.Tensor, red: _Reductions,
+                  capacity: int):
+    """FINAL: merge PARTIAL state columns into the result column."""
+    fn = a.fn
+    v, m = states[0]
+    contrib = live if m is None else live & m
+    if fn in (AggFn.COUNT, AggFn.COUNT_STAR):
+        return [(red.sum(v, live), None)]
+    if fn is AggFn.SUM:
+        return [(red.sum(v, contrib), red.count(contrib) > 0)]
+    if fn in (AggFn.MIN, AggFn.MAX):
+        return [(red.extreme(fn is AggFn.MIN, v, contrib),
+                 red.count(contrib) > 0)]
+    if fn is AggFn.AVG:
+        s = red.sum(v, contrib)
+        c = red.sum(states[1][0], live)
+        return [(s.to(torch.float64) / c.clamp(min=1).to(torch.float64),
+                 c > 0)]
+    if fn in (AggFn.FIRST, AggFn.LAST):
+        return [_first_last(fn, v, contrib, red, capacity)]
+    n, s1, s2 = (red.sum(sv, live) for sv, _ in states)
+    return [_finalize_var(fn, n, s1, s2)]
+
+
+def _first_last(fn: AggFn, v: torch.Tensor, contrib: torch.Tensor,
+                red: _Reductions, capacity: int):
+    """FIRST/LAST: the value at the smallest / largest contributing row
+    position of each group."""
+    pos = torch.arange(capacity, dtype=torch.int32, device=v.device)
+    best = red.extreme(fn is AggFn.FIRST, pos, contrib)
+    idx = best.clamp(0, capacity - 1).to(torch.int64)
+    return torch.index_select(v, 0, idx), red.count(contrib) > 0
+
+
+def _finalize_var(fn: AggFn, n, s1, s2):
+    mean = s1 / n.clamp(min=1.0)
+    m2 = s2 - s1 * mean  # sum((x-mean)^2) = s2 - s1^2/n
+    pop = fn in (AggFn.VAR_POP, AggFn.STDDEV_POP)
+    denom = (n if pop else n - 1.0).clamp(min=1.0)
+    var = m2.clamp(min=0.0) / denom
+    valid = n > (0.0 if pop else 1.0)
+    if fn in (AggFn.STDDEV_SAMP, AggFn.STDDEV_POP):
+        var = torch.sqrt(var)
+    return var, valid
 
 
 def _empty_global_row(op: HashAggregateExec,

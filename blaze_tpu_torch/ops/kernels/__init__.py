@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper, one module per TPU kernel they
-replace: `stats` (K1, masked statistics) and `compact` (K2, compaction
-permutation). Each module holds the wrapper, a plain PyTorch version of
+replace: `stats` (K1, masked statistics), `compact` (K2, compaction
+permutation) and `segreduce` (K3, segmented reduce). Each module holds the wrapper, a plain PyTorch version of
 the same function, and a launch counter; `_build` compiles and loads
 the sources in `csrc/`."""

@@ -133,5 +133,14 @@ def masked_stats_plain(values: torch.Tensor, mask: torch.Tensor) -> Stats:
                                               device=values.device))
     hi = torch.where(live, values, torch.full((), lo_n, dtype=values.dtype,
                                               device=values.device))
-    return (s.sum(dtype=acc).reshape(1), lo.amin().reshape(1),
-            hi.amax().reshape(1), live.sum(dtype=torch.int64).reshape(1))
+    lo, hi = lo.amin().reshape(1), hi.amax().reshape(1)
+    if values.dtype.is_floating_point:
+        # which of two equal zeros amin/amax keep depends on the order;
+        # -0.0 orders below +0.0, as jnp.min / jnp.max
+        zero = live & (values == 0)
+        neg = (zero & torch.signbit(values)).any()
+        pos = (zero & ~torch.signbit(values)).any()
+        lo = torch.where(lo == 0, torch.where(neg, -0.0, 0.0).to(lo), lo)
+        hi = torch.where(hi == 0, torch.where(pos, 0.0, -0.0).to(hi), hi)
+    return (s.sum(dtype=acc).reshape(1), lo, hi,
+            live.sum(dtype=torch.int64).reshape(1))

@@ -34,6 +34,14 @@ def _compact_indices(mask: torch.Tensor) -> Tuple[torch.Tensor,
     return compact_perm(mask)
 
 
+def occupied_slots(occupied: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """The first `out_cap` occupied slots of a hash table in slot order,
+    0-filled past the last (`jnp.nonzero(occupied, size=out_cap,
+    fill_value=0)`, hash_aggregate.py:905-907), through K2. Callers keep
+    out_cap below the table size."""
+    return _compact_indices(occupied)[0][:out_cap]
+
+
 def compact(cb: ColumnBatch, mask: Optional[torch.Tensor] = None
             ) -> ColumnBatch:
     """Keep rows where mask (AND the batch's own selection) is True, packed

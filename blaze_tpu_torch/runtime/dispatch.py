@@ -10,14 +10,18 @@ block, and the executor files it into each task's metric tree.
 Keys in use:
 - `h2d_copies`: host -> device buffer copies (batch.from_arrow);
 - `d2h_fetches`: device -> host buffer copies (batch.to_arrow);
-- `d2h_syncs`: blocking scalar readbacks (`host_int`);
+- `d2h_syncs`: blocking scalar readbacks (`host_int`, `host_bool`);
+  the grouped aggregate's are also counted by cause:
+  `d2h_syncs.insert_round` (one per probe round of the hash table's
+  insert loop), `d2h_syncs.group_branch` (direct or hashed slots) and
+  `d2h_syncs.n_groups` (the group-capacity ladder);
 - `launch.<kernel>`: launches of a hand-written kernel (ops/kernels).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 _lock = threading.Lock()
 _counts: Dict[str, int] = {}
@@ -53,7 +57,20 @@ class counting:
         return False
 
 
-def host_int(x) -> int:
-    """Blocking scalar readback (a full device round trip)."""
+def _sync(what: Optional[str]) -> None:
     record("d2h_syncs")
+    if what:
+        record("d2h_syncs." + what)
+
+
+def host_int(x, what: Optional[str] = None) -> int:
+    """Blocking scalar readback (a full device round trip); `what` names
+    it in a second counter, `d2h_syncs.<what>`."""
+    _sync(what)
     return int(x)
+
+
+def host_bool(x, what: Optional[str] = None) -> bool:
+    """Blocking readback of a device bool, counted as host_int."""
+    _sync(what)
+    return bool(x)

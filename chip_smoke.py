@@ -2,27 +2,38 @@
 """Chip smoke test of the PyTorch/CUDA port (`blaze_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py            # the full run: 16,777,216 parquet rows
-    python3 chip_smoke.py --rows N   # a smaller path phase
+                                     # (q6, select), 4,194,304 (grouped)
+    python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
 
 Phases, one JSON line each:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, whether pyarrow and protobuf import. No CUDA -> exit 2.
-2. build: both CUDA kernels from blaze_tpu_torch/csrc/, one nvcc per
+2. build: every CUDA kernel from blaze_tpu_torch/csrc/, one nvcc per
    source, all started together.
-3. kernels: K1 (masked statistics) and K2 (compaction permutation) on
-   the card against their plain PyTorch versions at the main path's
-   shapes (a 16384-row batch and a 16M-row column), with NaN, +/-inf,
-   all-masked, all-kept and int64-wrap inputs from a seeded numpy
-   generator; then CUDA-event timings beside each kernel's bound.
+3. kernels: K1 (masked statistics), K2 (compaction permutation) and K3
+   (segmented reduce) on the card against their plain PyTorch versions
+   at the main paths' shapes, with NaN, +/-inf, all-masked, all-kept,
+   out-of-range segment ids, empty segments and int64-wrap inputs from
+   a seeded numpy generator; K3 also at both ends of its domain (1024
+   and 2^23 segments). Then CUDA-event timings beside each kernel's
+   bound and, where there is one, the PyTorch library call.
 4. path: a zstd parquet file of `--rows` rows (TPC-DS store_sales-shaped
    item/qty/price, as in bench.py) goes through the port's
    `execute_task` on cuda twice: the q6 task (filter, project, keyless
    SUM/COUNT(*)) against a numpy oracle, and the select task (the same
    filter and project, compacted per batch) against pyarrow's
-   filter/multiply, row for row. Each kernel's launch count is zeroed
-   before the task it serves and must be > 0 after it. Each task then
-   runs once more under torch.profiler for its device busy time.
+   filter/multiply, row for row. Then a file of `--grouped-rows` rows
+   goes through the grouped task (project g = item % 4096, keyed
+   COMPLETE SUM/MIN/MAX(price), AVG(qty); bench.py's grouped_agg) and
+   through its map-side form (a PARTIAL task, then FINAL over its state
+   batches), both against bench.py's numpy bincount/reduceat oracle in
+   float64. Each kernel's launch count is zeroed before the task it
+   serves and must be > 0 after it. Each task except the two-phase one
+   then runs once more under torch.profiler for its device busy time.
+   The shape of every kernel launch on these paths is noted.
+5. kernels_at_path_shapes: each kernel against its plain version, as in
+   phase 3, at every launch shape of phase 4 that phase 3 did not check.
 
 The line before the last is the per-kernel JSON summary; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -32,6 +43,7 @@ This script imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -113,6 +125,8 @@ def k1_cases(rng, n: int):
         cases.append((f"{dt.__name__}_nan", w, np.ones(n, bool)))
         cases.append((f"{dt.__name__}_all_masked", v, np.zeros(n, bool)))
         cases.append((f"{dt.__name__}_all_kept", v, np.ones(n, bool)))
+        z = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(dt)
+        cases.append((f"{dt.__name__}_signed_zero", z, rng.random(n) < 0.5))
     for dt in (np.int32, np.int64):
         info = np.iinfo(dt)
         v = rng.integers(info.min, info.max, n, dtype=dt)
@@ -124,10 +138,14 @@ def k1_cases(rng, n: int):
 
 
 def same_value(torch, a, b) -> bool:
-    """Exact equality with NaN equal to NaN."""
+    """Bit for bit, NaN equal to NaN (whatever its payload): -0.0 and
+    +0.0 differ."""
+    if a.dtype != b.dtype:
+        return False
     if a.dtype.is_floating_point:
+        ints = torch.int32 if a.element_size() == 4 else torch.int64
         both_nan = torch.isnan(a) & torch.isnan(b)
-        return bool((both_nan | (a == b)).all())
+        return bool((both_nan | (a.view(ints) == b.view(ints))).all())
     return bool((a == b).all())
 
 
@@ -196,6 +214,165 @@ def check_k2(torch, compact, rng, sizes):
     return checked, max_err
 
 
+def k3_inputs(rng, n: int, k: int, op: str, dtype, case: str):
+    """(gid, values) host arrays for one K3 case: "random" (every gid
+    in range), "edges" (gids out of range, the odd segments empty, a
+    NaN in segment 4, +inf with -inf in segment 6, and segments 8, 10
+    and 12 holding only zeros: +0/-0/+0, -0/+0 and -0 alone), "wrap"
+    (int64 sums that overflow)."""
+    gid = rng.integers(0, k, n).astype(np.int32)
+    if np.issubdtype(dtype, np.floating):
+        v = ((rng.random(n) - 0.5) * 1e3).astype(dtype)
+    elif op == "sum":
+        v = rng.integers(-2 ** 40, 2 ** 40, n).astype(dtype)
+    else:
+        info = np.iinfo(dtype)
+        v = rng.integers(info.min, info.max, n, dtype=dtype)
+    if case == "edges":
+        gid = (gid // 2) * 2
+        out = rng.random(n) < 0.05
+        gid[out] = rng.choice(np.array([-1, k, k + 7, 2 ** 31 - 1],
+                                       np.int32), int(out.sum()))
+        if np.issubdtype(dtype, np.floating):
+            gid[(gid >= 8) & (gid <= 12)] = 14
+            gid[:10] = [4, 4, 6, 6, 8, 8, 8, 10, 10, 12]
+            v[:10] = [np.nan, 1.0, np.inf, -np.inf,
+                      0.0, -0.0, 0.0, -0.0, 0.0, -0.0]
+    elif case == "wrap":
+        v = rng.integers(2 ** 62, 2 ** 63 - 1, n, dtype=np.int64)
+    return gid, v
+
+
+K3_DTYPES = {"sum": (np.float64, np.int64),
+             "min": (np.float32, np.float64, np.int32, np.int64),
+             "max": (np.float32, np.float64, np.int32, np.int64)}
+
+
+def check_k3(torch, segreduce, rng, shapes):
+    """Every K3 operation and dtype against its plain version at each
+    (rows, segments) shape: float64 sums within 1e-12 * sum|x| per
+    segment, everything else bit for bit (NaN equal to NaN). Where a
+    block's shared-memory copy of the segments fits, the variant the
+    wrapper does not pick is held to the same."""
+    checked = 0
+    max_err = 0.0
+    for n, k in shapes:
+        for op, dtypes in K3_DTYPES.items():
+            kern = getattr(segreduce, f"segment_{op}")
+            plain = getattr(segreduce, f"segment_{op}_plain")
+            for dt in dtypes:
+                cases = ["random", "edges"]
+                if op == "sum" and dt == np.int64:
+                    cases.append("wrap")
+                for case in cases:
+                    g_np, v_np = k3_inputs(rng, n, k, op, dt, case)
+                    gid = torch.from_numpy(g_np).cuda()
+                    v = torch.from_numpy(v_np).cuda()
+                    exp = plain(gid, v, k)
+                    mag = plain(gid, v.abs(), k) if op == "sum" else None
+                    runs = [("picked", kern(gid, v, k))]
+                    size = v.element_size()
+                    if k * size <= segreduce._SHARED_MAX_BYTES:
+                        other = not segreduce.uses_shared(n, k, size)
+                        runs.append(("other variant", segreduce._launch(
+                            op, gid, v, k, other)))
+                    torch.cuda.synchronize()
+                    for variant, got in runs:
+                        if op == "sum" and v.dtype.is_floating_point:
+                            fin = torch.isfinite(exp)
+                            err = (got - exp).abs()[fin]
+                            e = float(err.max()) if err.numel() else 0.0
+                            max_err = max(max_err, e)
+                            ok = bool((err <= 1e-12 * mag[fin]).all()) \
+                                and same_value(torch, got[~fin], exp[~fin])
+                        else:
+                            ok = same_value(torch, got, exp)
+                        if not ok:
+                            raise AssertionError(
+                                f"K3 segment_{op} {np.dtype(dt).name} "
+                                f"{case} rows={n} segments={k} ({variant})"
+                                ": kernel differs from plain")
+                        checked += 1
+    return checked, max_err
+
+
+def k3_repeatable(torch, segreduce, rng, n: int, k: int) -> bool:
+    """Whether two float64 segment sums of the same input give the same
+    bits (atomics add in an order that may vary)."""
+    gid = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).cuda()
+    v = torch.from_numpy(rng.random(n) * 100).cuda()
+    a = segreduce.segment_sum(gid, v, k)
+    b = segreduce.segment_sum(gid, v, k)
+    return torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+def time_k3(torch, segreduce, rng, n: int, k: int):
+    """K3 at one (rows, segments) shape for the grouped task's three
+    reductions: float64 sum (SUM, AVG), int64 sum (the counts) and
+    float32 min (MIN, MAX). Beside the kernel: its plain version, one
+    PyTorch call on the same in-range gids (index_add_,
+    scatter_reduce_), both kernel variants where a block's shared-memory
+    copy of the segments fits, and the caller's pass that masks and
+    widens the column before K3 (_SegOps in ops/hash_aggregate.py)."""
+    gid = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).cuda()
+    gid64 = gid.long()
+    contrib = torch.from_numpy(rng.random(n) < 0.9).cuda()
+    price = torch.from_numpy((rng.random(n) * 100).astype(np.float32)).cuda()
+    out = {"rows": n, "segments": k}
+    for op, dt in (("sum", np.float64), ("sum", np.int64),
+                   ("min", np.float32)):
+        if dt == np.int64:
+            v = contrib.to(torch.int64)
+
+            def prep():
+                m = contrib.to(torch.int64)
+                torch.where(contrib, m, torch.zeros((), dtype=m.dtype,
+                                                    device=m.device))
+        elif op == "sum":
+            v = price.to(torch.float64)
+
+            def prep():
+                torch.where(contrib, price.to(torch.float64), torch.zeros(
+                    (), dtype=torch.float64, device=price.device))
+        else:
+            v = price
+
+            def prep():
+                torch.where(contrib, price, torch.full(
+                    (), float("inf"), dtype=price.dtype,
+                    device=price.device))
+        kern = getattr(segreduce, f"segment_{op}")
+        plain = getattr(segreduce, f"segment_{op}_plain")
+        if op == "sum":
+            def lib():
+                torch.zeros(k, dtype=v.dtype, device=v.device).index_add_(
+                    0, gid64, v)
+        else:
+            def lib():
+                torch.full((k,), float("inf"), dtype=v.dtype,
+                           device=v.device).scatter_reduce_(
+                    0, gid64, v, "amin", include_self=True)
+        # each row's gid and value read once, each segment written once;
+        # one add or compare per row
+        size = v.element_size()
+        nbytes = n * (4 + size) + k * size
+        b_ms, b_by = bound(nbytes, n, CUDA_CORE_OPS_PER_S)
+        row = {
+            "ms": cuda_ms(torch, lambda: kern(gid, v, k)),
+            "plain_ms": cuda_ms(torch, lambda: plain(gid, v, k)),
+            "library_ms": cuda_ms(torch, lib),
+            "caller_prep_ms": cuda_ms(torch, prep),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "variant": "shared" if segreduce.uses_shared(n, k, size)
+            else "global"}
+        if k * size <= segreduce._SHARED_MAX_BYTES:
+            for variant, flag in (("shared", True), ("global", False)):
+                row[f"{variant}_ms"] = cuda_ms(
+                    torch, lambda: segreduce._launch(op, gid, v, k, flag))
+        out[f"{op}_{np.dtype(dt).name}"] = row
+    return out
+
+
 def time_kernels(torch, stats, compact, rng, n: int):
     """Kernel, plain and library times at one shape (f32 values, bool
     masks: the q6 path's dtypes)."""
@@ -240,7 +417,7 @@ def write_store_sales(path: str, rows: int, seed: int):
         pa.table({"item": item, "qty": qty, "price": price}), path,
         compression="zstd", row_group_size=1 << 20,
     )
-    return qty, price
+    return item, qty, price
 
 
 def q6_plan(scan, aggregate: bool):
@@ -268,26 +445,65 @@ def q6_plan(scan, aggregate: bool):
     )
 
 
-def run_task(torch, blob, kernels):
-    """Run one task on cuda with the kernels' counts zeroed just before;
-    returns (batches, wall seconds, launches, transfer counts)."""
-    from blaze_tpu_torch.ops.base import ExecContext
+# the shape of a launch, from the arguments of each wrapper module's
+# `_launch`: rows for K1 and K2, (rows, segments) for K3
+LAUNCH_SHAPE = {
+    "masked_stats": lambda values, mask: values.numel(),
+    "compact_perm": lambda keep: keep.numel(),
+    "segment_reduce": lambda op, gid, values, k, *_: (values.numel(), k),
+}
+
+
+@contextlib.contextmanager
+def launch_shapes(kernels):
+    """Wrap each kernel module's `_launch` (which counts the launch) to
+    note the shape of every launch; yields {name: set of shapes}."""
+    seen = {name: set() for name in kernels}
+    saved = {name: mod._launch for name, mod in kernels.items()}
+
+    def noting(name, launch):
+        def wrapped(*args):
+            seen[name].add(LAUNCH_SHAPE[name](*args))
+            return launch(*args)
+        return wrapped
+
+    for name, mod in kernels.items():
+        mod._launch = noting(name, saved[name])
+    try:
+        yield seen
+    finally:
+        for name, mod in kernels.items():
+            mod._launch = saved[name]
+
+
+def run_counted(torch, fn, kernels):
+    """Run fn() with the kernels' launch counts zeroed just before and
+    the card synchronised at both ends; returns (its result, wall
+    seconds, launches, transfer and sync counts)."""
     from blaze_tpu_torch.runtime import dispatch
-    from blaze_tpu_torch.runtime.executor import execute_task
 
     for k in kernels.values():
         k.LAUNCHES = 0
-    ctx = ExecContext(device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with dispatch.counting() as c:
-        out = list(execute_task(blob, ctx))
+        out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.LAUNCHES for name, k in kernels.items()}
     transfers = {k: v for k, v in c.counts.items()
                  if not k.startswith("launch.")}
     return out, wall, launches, transfers
+
+
+def run_task(torch, blob, kernels):
+    """One task through execute_task on cuda, counted (run_counted)."""
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    return run_counted(
+        torch, lambda: list(execute_task(blob, ExecContext(device="cuda"))),
+        kernels)
 
 
 def profile_task(torch, blob, task: str, wall: float):
@@ -312,7 +528,8 @@ def profile_task(torch, blob, task: str, wall: float):
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in dev if any(
         k in e.key for k in ("stats_partial", "stats_final", "block_counts",
-                             "scan_counts", "scatter_rows"))]
+                             "scan_counts", "scatter_rows", "seg_init",
+                             "seg_shared", "seg_global", "seg_decode"))]
     emit({"phase": "profile", "task": task,
           "device_busy_ms": busy_ms if dev else "not measured",
           "device_calls": sum(e.count for e in dev),
@@ -338,7 +555,7 @@ def path_phase(torch, rows: int, seed: int, kernels):
     os.makedirs(work, exist_ok=True)
     path = os.path.join(work, "store_sales.parquet")
     t0 = time.perf_counter()
-    qty, price = write_store_sales(path, rows, seed)
+    _, qty, price = write_store_sales(path, rows, seed)
     write_s = time.perf_counter() - t0
     results = {}
     try:
@@ -396,10 +613,158 @@ def path_phase(torch, rows: int, seed: int, kernels):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: the grouped aggregate
+# ---------------------------------------------------------------------------
+
+GROUPS = 4096
+
+
+def grouped_aggs():
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col
+
+    return [(AggExpr(AggFn.SUM, Col("price")), "s"),
+            (AggExpr(AggFn.MIN, Col("price")), "lo"),
+            (AggExpr(AggFn.MAX, Col("price")), "hi"),
+            (AggExpr(AggFn.AVG, Col("qty")), "aq")]
+
+
+def grouped_plan(scan, mode):
+    """bench.py's grouped_agg shape (bench.py:1026-1038) on the port's
+    operators: g = item % 4096, keyed SUM/MIN/MAX(price), AVG(qty)."""
+    from blaze_tpu_torch.exprs.ir import Col, Literal
+    from blaze_tpu_torch.ops import HashAggregateExec, ProjectExec
+    from blaze_tpu_torch.types import DataType
+
+    proj = ProjectExec(scan, [
+        (Col("item") % Literal(GROUPS, DataType.int32()), "g"),
+        (Col("price"), "price"), (Col("qty"), "qty")])
+    return HashAggregateExec(proj, keys=[(Col("g"), "g")],
+                             aggs=grouped_aggs(), mode=mode)
+
+
+def final_plan(states, state_schema, device):
+    """FINAL over a PARTIAL task's Arrow state batches, as a reduce
+    stage runs it: the batches back on the device in a
+    MemoryScanExec."""
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import AggMode, HashAggregateExec, MemoryScanExec
+
+    cbs = [ColumnBatch.from_arrow(rb, device=device) for rb in states]
+    return HashAggregateExec(MemoryScanExec([cbs], state_schema),
+                             keys=[(Col("g"), "g")], aggs=grouped_aggs(),
+                             mode=AggMode.FINAL)
+
+
+def grouped_oracle(item, qty, price):
+    """bench.py's numpy oracle (bench.py:1059-1085) in float64: per
+    non-empty group g, SUM, MIN and MAX of price and AVG of qty."""
+    g = item.astype(np.int64) % GROUPS
+    s = np.bincount(g, weights=price.astype(np.float64), minlength=GROUPS)
+    cnt = np.bincount(g, minlength=GROUPS)
+    qs = np.bincount(g, weights=qty.astype(np.float64), minlength=GROUPS)
+    order = np.argsort(g, kind="stable")
+    gs = g[order]
+    ps = price[order]
+    bounds = np.searchsorted(gs, np.arange(GROUPS + 1))
+    starts = np.minimum(bounds[:-1], len(ps) - 1)
+    lo = np.minimum.reduceat(ps, starts)
+    hi = np.maximum.reduceat(ps, starts)
+    nz = bounds[:-1] < bounds[1:]
+    return {"g": np.flatnonzero(nz), "s": s[nz], "lo": lo[nz],
+            "hi": hi[nz], "aq": qs[nz] / cnt[nz]}
+
+
+def check_grouped(table, exp, task: str):
+    """The group set, MIN, MAX and AVG(qty) exact; SUM within 1e-9
+    relative per group. Returns the largest relative SUM error."""
+    g = table.column("g").to_numpy()
+    order = np.argsort(g)
+    cols = {n: table.column(n).to_numpy()[order] for n in
+            ("s", "lo", "hi", "aq")}
+    if table.num_rows != len(exp["g"]) or not np.array_equal(
+            g[order], exp["g"]):
+        raise AssertionError(f"{task}: {table.num_rows} groups, numpy "
+                             f"{len(exp['g'])}, or the group sets differ")
+    if any(table.column(n).null_count for n in table.column_names):
+        raise AssertionError(f"{task}: null results")
+    rel = np.abs(cols["s"] - exp["s"]) / np.maximum(np.abs(exp["s"]),
+                                                    1e-300)
+    for n in ("lo", "hi", "aq"):
+        if not np.array_equal(cols[n], exp[n]):
+            raise AssertionError(f"{task}: {n} differs from numpy")
+    if not (rel <= 1e-9).all():
+        raise AssertionError(f"{task}: SUM off by {rel.max()} relative")
+    return float(rel.max())
+
+
+def grouped_phase(torch, rows: int, seed: int, kernels):
+    """The grouped task (COMPLETE), then its map-side form: a PARTIAL
+    task and a FINAL over its state batches."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.ops import AggMode, FileRange, ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.executor import execute_task, run_plan
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "store_sales_grouped.parquet")
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        exp = grouped_oracle(*write_store_sales(path, rows, seed))
+        write_s = time.perf_counter() - t0
+        scan = ParquetScanExec([[FileRange(path)]])
+
+        blob = task_to_proto(grouped_plan(scan, AggMode.COMPLETE), 0)
+        out, wall, launches, transfers = run_task(torch, blob, kernels)
+        err = check_grouped(pa.Table.from_batches(out), exp, "grouped")
+        for name in ("segment_reduce", "compact_perm"):
+            if launches[name] <= 0:
+                raise AssertionError(f"grouped did not launch {name}")
+        results["grouped"] = {"launches": launches, "wall_s": wall}
+        emit({"phase": "path", "task": "grouped", "rows": rows,
+              "groups": len(exp["g"]), "parquet_write_s": write_s,
+              "wall_s": wall, "rows_per_s": rows / wall,
+              "sum_max_rel_err": err, "launches": launches,
+              "transfers": transfers})
+        profile_task(torch, blob, "grouped", wall)
+
+        partial = grouped_plan(scan, AggMode.PARTIAL)
+        blob = task_to_proto(partial, 0)
+
+        def two_phase():
+            ctx = ExecContext(device="cuda")
+            states = list(execute_task(blob, ctx))
+            final = final_plan(states, partial.schema, ctx.device)
+            return states, run_plan(final, ctx)
+
+        (states, table), wall, launches, transfers = run_counted(
+            torch, two_phase, kernels)
+        err = check_grouped(table, exp, "grouped_partial")
+        if launches["segment_reduce"] <= 0:
+            raise AssertionError("grouped_partial did not launch K3")
+        results["grouped_partial"] = {"launches": launches, "wall_s": wall}
+        emit({"phase": "path", "task": "grouped_partial", "rows": rows,
+              "state_batches": len(states),
+              "state_rows": sum(b.num_rows for b in states),
+              "groups": table.num_rows, "wall_s": wall,
+              "rows_per_s": rows / wall, "sum_max_rel_err": err,
+              "launches": launches, "transfers": transfers})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
                     help="parquet rows of the path phase")
+    ap.add_argument("--grouped-rows", type=int, default=1 << 22,
+                    help="parquet rows of the grouped tasks")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args()
 
@@ -431,10 +796,10 @@ def main() -> int:
           "device_count": torch.cuda.device_count(), "imports": imports})
 
     # 2. build
-    from blaze_tpu_torch.ops.kernels import _build, compact, stats
+    from blaze_tpu_torch.ops.kernels import _build, compact, segreduce, stats
 
     t0 = time.perf_counter()
-    libs = _build.build(["stats", "compact"])
+    libs = _build.build(_build.SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.relpath(str(p), REPO) for p in libs],
           "flags": _build.FLAGS})
@@ -443,7 +808,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     sizes = [16384, 1 << 24]
     n1, k1_err = check_k1(torch, stats, rng, sizes)
-    n2, k2_err = check_k2(torch, compact, rng, sizes + [256, 1000])
+    k2_sizes = sizes + [256, 1000, 32768]
+    n2, k2_err = check_k2(torch, compact, rng, k2_sizes)
     timings = [time_kernels(torch, stats, compact, rng, n) for n in sizes]
     emit({"phase": "kernels", "k1_cases": n1, "k1_max_abs_err": k1_err,
           "k2_max_abs_err": k2_err,
@@ -455,19 +821,65 @@ def main() -> int:
                         "(sum, min, max, count) of a masked column",
           "k2_library": "torch.nonzero(keep); it syncs with the host for "
                         "its output size"})
+    # K3 at both domain ends (1024 and 2^23 segments) and at the grouped
+    # task's and the PARTIAL batch's shapes; timed at those two, at the
+    # FINAL's (the PARTIAL states, 16,384 slots) and at 1024 segments
+    grouped_shape, partial_shape = (1 << 22, 16384), (16384, 32768)
+    k3_shapes = [(16384, 1024), (1 << 22, 1024), grouped_shape,
+                 partial_shape, (1 << 22, 1 << 23)]
+    n3, k3_err = check_k3(torch, segreduce, rng, k3_shapes)
+    k3_times = [time_k3(torch, segreduce, rng, *sh)
+                for sh in (grouped_shape, partial_shape, (1032192, 16384),
+                           (1 << 22, 1024))]
+    emit({"phase": "kernels", "k3_cases": n3, "k3_max_abs_err": k3_err,
+          "k3_tolerance": "f64 sums |d| <= 1e-12 * sum|x| per segment; "
+                          "int sums, min, max exact",
+          "k3_f64_sum_repeatable": k3_repeatable(torch, segreduce, rng,
+                                                 *grouped_shape),
+          "k3_timings": k3_times, "nvidia_smi": smi,
+          "k3_library": "index_add_ (sum), scatter_reduce_ amin (min)"})
 
-    # 4. the path
-    kernels = {"masked_stats": stats, "compact_perm": compact}
-    res = path_phase(torch, args.rows, args.seed, kernels)
+    # 4. the paths, noting the shape of every kernel launch
+    kernels = {"masked_stats": stats, "compact_perm": compact,
+               "segment_reduce": segreduce}
+    with launch_shapes(kernels) as seen:
+        res = path_phase(torch, args.rows, args.seed, kernels)
+        res.update(grouped_phase(torch, args.grouped_rows, args.seed,
+                                 kernels))
 
-    # summary: timings at the main path's batch shape (16384 rows)
-    main_t = timings[0]
+    # 5. each kernel against its plain version at the launch shapes of
+    # the paths that phase 3 did not check
+    new = {"masked_stats": sorted(seen["masked_stats"] - set(sizes)),
+           "compact_perm": sorted(seen["compact_perm"] - set(k2_sizes)),
+           "segment_reduce": sorted(seen["segment_reduce"] - set(k3_shapes))}
+    extra = {"masked_stats": check_k1(torch, stats, rng, new["masked_stats"]),
+             "compact_perm": check_k2(torch, compact, rng,
+                                      new["compact_perm"]),
+             "segment_reduce": check_k3(torch, segreduce, rng,
+                                        new["segment_reduce"])}
+    k1_err = max(k1_err, extra["masked_stats"][1])
+    k2_err = max(k2_err, extra["compact_perm"][1])
+    k3_err = max(k3_err, extra["segment_reduce"][1])
+    emit({"phase": "kernels_at_path_shapes",
+          "path_shapes": {name: sorted(v) for name, v in seen.items()},
+          "checked_here": new,
+          "cases": {name: v[0] for name, v in extra.items()},
+          "max_abs_err": {"masked_stats": k1_err, "compact_perm": k2_err,
+                          "segment_reduce": k3_err}})
+
+    # summary: timings at the main path's batch shape, 16384 rows
+    # (K1, K2) and at the grouped task's shape, float64 sums (K3)
+    main_t = dict(timings[0])
+    main_t["segment_reduce"] = k3_times[0]["sum_float64"]
     summary = []
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
          "blaze_tpu/ops/kernels/stats_pallas.py:75", "q6", k1_err),
         ("compact_perm", "blaze_tpu_torch/csrc/compact.cu",
          "blaze_tpu/ops/kernels/compact_pallas.py:78", "select", k2_err),
+        ("segment_reduce", "blaze_tpu_torch/csrc/segreduce.cu",
+         "blaze_tpu/ops/kernels/segreduce_pallas.py:127", "grouped",
+         k3_err),
     ):
         t = main_t[name]
         summary.append({

@@ -18,6 +18,7 @@ import torch
 
 from blaze_tpu.exprs.ir import AggExpr as JAggExpr, AggFn as JAggFn
 from blaze_tpu.exprs.ir import Col as JCol
+from blaze_tpu.exprs.ir import Literal as JLiteral
 from blaze_tpu.ops import (
     AggMode as JAggMode,
     FilterExec as JFilter,
@@ -45,9 +46,11 @@ from blaze_tpu_torch.ops import (
     ProjectExec,
 )
 from blaze_tpu_torch.plan.serde import task_to_proto
-from blaze_tpu_torch.runtime.executor import execute_task
+from blaze_tpu_torch.runtime.executor import execute_task, run_plan
 from blaze_tpu_torch.types import DataType
 
+import chip_smoke
+from test_torch_hash_aggregate import assert_rows_equal
 from torch_support import assert_arrow_equal
 
 REPO = Path(__file__).resolve().parents[1]
@@ -241,3 +244,68 @@ def test_cpu_path_leaves_jax_unloaded(tmp_path):
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
+
+
+def jax_grouped(path, mode=JAggMode.COMPLETE):
+    """bench.py's grouped_agg task shape, built with the JAX package."""
+    proj = JProject(JScan([[JRange(path)]]), [
+        (JCol("item") % JLiteral(4096, JDataType.int32()), "g"),
+        (JCol("price"), "price"), (JCol("qty"), "qty")])
+    return JAgg(proj, keys=[(JCol("g"), "g")],
+                aggs=[(JAggExpr(JAggFn.SUM, JCol("price")), "s"),
+                      (JAggExpr(JAggFn.MIN, JCol("price")), "lo"),
+                      (JAggExpr(JAggFn.MAX, JCol("price")), "hi"),
+                      (JAggExpr(JAggFn.AVG, JCol("qty")), "aq")],
+                mode=mode)
+
+
+def _grouped_oracle(path):
+    t = pq.read_table(path)
+    return chip_smoke.grouped_oracle(*(t.column(c).to_numpy()
+                                       for c in ("item", "qty", "price")))
+
+
+def test_grouped_task_from_jax_blob(tmp_path):
+    """The grouped task (keyed COMPLETE over g = item % 4096) made by the
+    JAX package: equal to it row for row, and to chip_smoke's numpy
+    oracle (bench.py's bincount/reduceat)."""
+    path = _write(tmp_path / "ss.parquet")
+    blob = jax_task_to_proto(jax_grouped(path), 0)
+    got, exp = _both(blob)
+    g, e = pa.Table.from_batches(got), pa.Table.from_batches(exp)
+    assert g.num_rows > 4000
+    assert_rows_equal(g, e)
+    chip_smoke.check_grouped(g, _grouped_oracle(path), "grouped")
+
+
+def test_port_grouped_blob_runs_in_jax(tmp_path):
+    """The reverse direction: chip_smoke's grouped plan, serialized by
+    the port, is the JAX package's blob byte for byte and runs there
+    with the same rows."""
+    path = _write(tmp_path / "ss.parquet", rows=5000)
+    port = chip_smoke.grouped_plan(ParquetScanExec([[FileRange(path)]]),
+                                   AggMode.COMPLETE)
+    blob = task_to_proto(port, 0)
+    assert blob == jax_task_to_proto(jax_grouped(path), 0)
+    got, exp = _both(blob)
+    assert_rows_equal(pa.Table.from_batches(got), pa.Table.from_batches(exp))
+
+
+def test_grouped_partial_then_final(tmp_path):
+    """The map-side form chip_smoke runs: a PARTIAL task (state batches
+    equal to the JAX package's), then FINAL over its Arrow state
+    batches through run_plan, against the numpy oracle."""
+    path = _write(tmp_path / "ss.parquet")
+    partial = chip_smoke.grouped_plan(
+        ParquetScanExec([[FileRange(path)]]), AggMode.PARTIAL)
+    blob = task_to_proto(partial, 0)
+    assert blob == jax_task_to_proto(jax_grouped(path, JAggMode.PARTIAL), 0)
+    states, exp = _both(blob)
+    assert len(states) == len(exp) == 2
+    for g, e in zip(states, exp):
+        assert_rows_equal(pa.Table.from_batches([g]),
+                          pa.Table.from_batches([e]))
+    ctx = ExecContext(device="cpu")
+    final = chip_smoke.final_plan(states, partial.schema, ctx.device)
+    table = run_plan(final, ctx)
+    chip_smoke.check_grouped(table, _grouped_oracle(path), "grouped_partial")

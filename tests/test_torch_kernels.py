@@ -43,6 +43,11 @@ def _k1_case(name, dtype, rng, n=CAP):
     elif name == "wrap":
         v = rng.integers(2 ** 62, 2 ** 63 - 1, n, dtype=np.int64)
         m[:] = True
+    elif name == "signed_zero":
+        # -0.0 and +0.0 mixed: min is -0.0 and max +0.0 in any row order
+        v = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(dtype)
+    elif name == "neg_zero":
+        v = np.full(n, -0.0, dtype)
     return v, m
 
 
@@ -53,8 +58,9 @@ def _port_stats(v, m):
 
 
 def _same(a, b):
-    """Exact equality, NaN equal to NaN."""
-    return bool(np.isnan(a) and np.isnan(b)) or a == b
+    """Exact equality, NaN equal to NaN and -0.0 apart from +0.0."""
+    return bool(np.isnan(a) and np.isnan(b)) or (
+        a == b and np.signbit(a) == np.signbit(b))
 
 
 PALLAS_CASES = [
@@ -93,7 +99,8 @@ def test_k1_matches_pallas_interpret(dtype, name):
 SEGOPS_CASES = [
     (d, n)
     for d in (np.float32, np.float64, np.int32, np.int64)
-    for n in ("random", "nan", "inf", "all_masked", "all_kept")
+    for n in ("random", "nan", "inf", "all_masked", "all_kept",
+              "signed_zero", "neg_zero")
     if np.issubdtype(d, np.floating) or n in ("random", "all_masked",
                                               "all_kept")
 ] + [(np.int64, "wrap")]

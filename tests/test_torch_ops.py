@@ -1,5 +1,5 @@
-"""The PyTorch port's filter, project and keyless aggregate against the
-JAX package's operators, on identical batches (numpy buffers through
+"""The PyTorch port's filter, project and aggregate against the JAX
+package's operators, on identical batches (numpy buffers through
 interop.batch_from_numpy), run on the CPU.
 
 Expressions are built in the port's IR and cross to the JAX IR through
@@ -207,10 +207,64 @@ def test_empty_input_gives_the_global_row():
 
 @pytest.mark.parametrize("keys,aggs", [
     ([(Col("a"), "a")], [(AggExpr(AggFn.COUNT_STAR, None), "n")]),
-    ([], [(AggExpr(AggFn.VAR_POP, Col("x")), "v")]),
-    ([], [(AggExpr(AggFn.FIRST, Col("x")), "v")]),
+    ([], [(AggExpr(AggFn.VAR_POP, Col("x")), "var"),
+          (AggExpr(AggFn.STDDEV_SAMP, Col("f")), "std")]),
+    ([], [(AggExpr(AggFn.FIRST, Col("x")), "v"),
+          (AggExpr(AggFn.LAST, Col("a")), "w")]),
 ], ids=["grouped", "variance", "first"])
-def test_out_of_slice_aggregates_raise(keys, aggs):
-    pscan, _ = _scans(n_batches=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HashAggregateExec(pscan, keys, aggs, AggMode.COMPLETE)
+def test_second_slice_aggregates_match_jax(keys, aggs):
+    """What the first slice refused and this one runs: a keyed COUNT(*),
+    keyless VAR/STDDEV and FIRST/LAST, against the JAX package (NaN
+    rows included; variance within 1e-9 relative, the rest exact)."""
+    pscan, jscan = _scans()
+    port = HashAggregateExec(pscan, keys, aggs, AggMode.COMPLETE)
+    ref = jax_ops.HashAggregateExec(jscan, [(jx(e), n) for e, n in keys],
+                                    [(jx(a), n) for a, n in aggs],
+                                    jax_ops.AggMode.COMPLETE)
+    got, exp = _run(port, ref)
+    assert got.num_rows == exp.num_rows > 0
+    assert got.schema == exp.schema
+    for name in exp.schema.names:
+        g = got.column(name).to_numpy(zero_copy_only=False)
+        e = exp.column(name).to_numpy(zero_copy_only=False)
+        np.testing.assert_allclose(g.astype(float), e.astype(float),
+                                   rtol=1e-9 if name in ("var", "std") else 0,
+                                   equal_nan=True, err_msg=name)
+
+
+_WIDE = Schema([
+    Field("s", DataType.utf8()), Field("w", DataType.decimal(30, 2)),
+    Field("m", DataType.decimal(12, 2)), Field("a", DataType.int32()),
+])
+
+
+@pytest.mark.parametrize("schema,keys,aggs,match", [
+    (_WIDE, [(Col("a"), "a")], [(AggExpr(AggFn.SUM, Col("m")), "t")],
+     "item 3"),
+    (_WIDE, [(Col("s"), "s")], [(AggExpr(AggFn.COUNT_STAR, None), "n")],
+     "item 3"),
+    (_WIDE, [(Col("w"), "w")], [(AggExpr(AggFn.COUNT_STAR, None), "n")],
+     "item 3"),
+    (_WIDE, [], [(AggExpr(AggFn.MIN, Col("s")), "lo")], "item 3"),
+], ids=["decimal_sum", "string_key", "wide_decimal_key", "string_min"])
+def test_out_of_slice_aggregates_raise(schema, keys, aggs, match):
+    """What still waits raises at construction, naming its ROADMAP
+    item."""
+    scan = MemoryScanExec([[]], schema)
+    with pytest.raises(NotImplementedError, match=match):
+        HashAggregateExec(scan, keys, aggs, AggMode.COMPLETE)
+
+
+def test_keyed_input_over_materialize_limit_raises():
+    """A keyed COMPLETE input over max_materialize_rows needs the JAX
+    package's grace aggregation (exchange tier, ROADMAP item 6): the
+    port raises instead of giving a partial result. The keyless
+    aggregate folds per-batch states, as before."""
+    pscan, _ = _scans()
+    keyed = HashAggregateExec(pscan, [(Col("a"), "a")],
+                              [(AggExpr(AggFn.COUNT_STAR, None), "n")],
+                              AggMode.COMPLETE)
+    ctx = ExecContext(config=EngineConfig(device="cpu",
+                                          max_materialize_rows=1500))
+    with pytest.raises(Exception, match="item 6"):
+        run_plan(keyed, ctx)
