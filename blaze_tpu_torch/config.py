@@ -1,14 +1,17 @@
 """Engine configuration.
 
-Mirrors the reference's engine-sizing knobs (spark.blaze.batchSize:
-reference NativeSupports.scala:241-253 -> exec.rs:53-107) plus the
-device the engine runs on. `device` is "cuda" by default: entry points
-run on the card unless the caller asks for the CPU (the tests do).
+Mirrors the reference's engine-sizing knobs (spark.blaze.batchSize,
+memory fraction, tmp dirs: reference NativeSupports.scala:241-253 ->
+exec.rs:53-107) plus the device the engine runs on. `device` is "cuda"
+by default: entry points run on the card unless the caller asks for the
+CPU (the tests do).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Sequence
 
 
@@ -16,6 +19,19 @@ from typing import Sequence
 class EngineConfig:
     # Max rows per device batch (reference default 16384, exec.rs:105).
     batch_size: int = 16384
+    # Fraction of the memory budget the engine may use before spilling
+    # (reference MemoryManagerConfig memory_fraction, exec.rs:79-94).
+    memory_fraction: float = 0.75
+    # Host-side budget in bytes for buffered shuffle state.
+    max_memory: int = 4 << 30
+    # Device budget for materialized operator input; sizes the bucket
+    # count of grace execution (runtime/memory.py).
+    device_memory_budget: int = 8 << 30
+    # Spill directories (reference DiskManagerConfig::NewSpecified
+    # tmp_dirs).
+    tmp_dirs: Sequence[str] = dataclasses.field(
+        default_factory=lambda: [tempfile.gettempdir()]
+    )
     # Row-count buckets for padding batches. Each batch is padded up to
     # the smallest bucket >= its row count, so a stream of batches sees
     # a handful of distinct shapes (the kernels' launch shapes).
@@ -24,6 +40,11 @@ class EngineConfig:
     # input exceeds this many rows folds per-batch partial states
     # instead of concatenating its input (ops/hash_aggregate.py).
     max_materialize_rows: int = 1 << 22
+    # Least bucket count of grace execution (ops/external.py).
+    external_buckets: int = 32
+    # zstd level of shuffle parts (the reference's level 1,
+    # util/ipc.rs:20-49).
+    ipc_compression_level: int = 1
     # torch device the engine computes on ("cuda", "cuda:1", "cpu").
     device: str = "cuda"
 
@@ -34,6 +55,11 @@ class EngineConfig:
         # Round up to a multiple of the largest bucket for oversized batches.
         top = self.shape_buckets[-1]
         return ((num_rows + top - 1) // top) * top
+
+    def spill_dir(self) -> str:
+        d = self.tmp_dirs[0]
+        os.makedirs(d, exist_ok=True)
+        return d
 
 
 _CONFIG: EngineConfig = EngineConfig()

@@ -4,8 +4,8 @@ Reference counterpart: the HDFS object store proxy
 (hdfs_object_store.rs:34-140) - the reference's native engine never
 talks to storage directly; it reads through a registered ObjectStore.
 The JAX package also carries memory, callback and remote-block stores;
-they wait for the exchange tier (ROADMAP 'Modules to port' item 6), and
-a path with a `scheme://` prefix raises until then.
+they wait for the rest of the exchange tier (ROADMAP 'Modules to port'
+item 9), and a path with a `scheme://` prefix raises until then.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ def store_for(path: str) -> LocalStore:
         scheme = path.split("://", 1)[0]
         raise NotImplementedError(
             f"object store scheme {scheme!r} waits for ROADMAP "
-            "'Modules to port' item 6 (exchange tier); local paths only"
+            "'Modules to port' item 9 (exchange tier, the rest); local "
+            "paths only"
         )
     return _LOCAL

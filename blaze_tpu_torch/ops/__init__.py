@@ -1,6 +1,8 @@
-"""Physical operators of the port: scans, filter, project and the hash
-aggregate, keyless and keyed. Operators stream ColumnBatches per
-partition and compute eagerly on the task's device.
+"""Physical operators of the port: scans, filter, project, the hash
+aggregate (keyless and keyed, with grace execution past its
+materialization limit), and the exchange: the shuffle writer and the IPC
+reader and writer. Operators stream ColumnBatches per partition and
+compute eagerly on the task's device.
 """
 
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
@@ -9,6 +11,13 @@ from blaze_tpu_torch.ops.project import ProjectExec
 from blaze_tpu_torch.ops.filter import FilterExec
 from blaze_tpu_torch.ops.hash_aggregate import AggMode, HashAggregateExec
 from blaze_tpu_torch.ops.parquet_scan import FileRange, ParquetScanExec
+from blaze_tpu_torch.ops.shuffle_writer import ShuffleWriterExec
+from blaze_tpu_torch.ops.ipc_reader import (
+    FileSegment,
+    IpcReaderExec,
+    IpcReadMode,
+)
+from blaze_tpu_torch.ops.ipc_writer import IpcWriterExec, collect_ipc
 
 __all__ = [
     "ExecContext",
@@ -20,4 +29,10 @@ __all__ = [
     "HashAggregateExec",
     "FileRange",
     "ParquetScanExec",
+    "ShuffleWriterExec",
+    "FileSegment",
+    "IpcReaderExec",
+    "IpcReadMode",
+    "IpcWriterExec",
+    "collect_ipc",
 ]

@@ -48,6 +48,9 @@ class ExecContext:
         default_factory=lambda: MetricNode("root")
     )
     device: Optional[Union[str, torch.device]] = None
+    # resource registry: IpcReader sources, IpcWriter sinks (the
+    # reference's JniBridge.resourcesMap, JniBridge.java:31)
+    resources: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self.device = torch.device(

@@ -25,14 +25,18 @@ than a tier holds, or a probe loop cut off by its round bound, climb to
 the next tier.
 
 A COMPLETE or FINAL input over `max_materialize_rows` rows: keyless, it
-folds per-batch PARTIAL states and merges them once (the keyless branch
-of the JAX package's `_execute_external`); keyed, the JAX package's
-grace aggregation needs the exchange tier, so the port raises.
+folds per-batch PARTIAL states and merges them once; keyed, it takes the
+JAX package's grace aggregation (`_execute_external`, `_grace_agg`):
+the input is hash-bucketed on its keys (ops/external.py, kernel K4) and
+each bucket aggregates alone; a bucket still over the limit is bucketed
+again by the next hash bits, and at the greatest depth a COMPLETE bucket
+(one hot key) aggregates chunk by chunk into PARTIAL states merged once.
 """
 
 from __future__ import annotations
 
 import enum
+import itertools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -47,19 +51,26 @@ from blaze_tpu_torch.exprs.eval import DeviceEvaluator
 from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.ops import hash_table as ht
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
-from blaze_tpu_torch.ops.external import collect_until
+from blaze_tpu_torch.ops.external import (
+    bucket_stream,
+    collect_until,
+    subdivide_pid_fn,
+)
 from blaze_tpu_torch.ops.kernels import segreduce
 from blaze_tpu_torch.ops.kernels.stats import masked_stats
 from blaze_tpu_torch.ops.project import batch_cvs
 from blaze_tpu_torch.ops.util import concat_batches, occupied_slots
 from blaze_tpu_torch.runtime.dispatch import host_int
+from blaze_tpu_torch.runtime.memory import (
+    batch_device_bytes,
+    choose_external_bucket_count,
+    get_device_tracker,
+)
 
 _ROADMAP_DECIMAL = ("ROADMAP 'Modules to port' item 3 (decimal SUM/AVG "
                     "states, with decimal128)")
 _ROADMAP_STRINGS = ("ROADMAP 'Modules to port' item 3 (dictionary-encoded "
                     "strings)")
-_ROADMAP_GRACE = ("ROADMAP 'Modules to port' item 6 (exchange tier: keyed "
-                  "grace aggregation)")
 _VARIANCE = (AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
              AggFn.STDDEV_POP)
 # first and second tiers of the group-capacity ladder (the JAX package's
@@ -312,11 +323,6 @@ class HashAggregateExec(PhysicalOp):
             child_it, ctx.config.max_materialize_rows
         )
         if exceeded:
-            if self.keys:
-                raise NotImplementedError(
-                    f"a keyed {self.mode.value} aggregate over more than "
-                    f"{ctx.config.max_materialize_rows} rows waits for "
-                    f"{_ROADMAP_GRACE}")
             yield from self._execute_external(batches, child_it, ctx)
             return
         cb = concat_batches(batches, self.children[0].schema, ctx.device)
@@ -329,9 +335,23 @@ class HashAggregateExec(PhysicalOp):
 
     def _execute_external(self, head, rest, ctx: ExecContext
                           ) -> Iterator[ColumnBatch]:
-        """Oversized keyless input: fold one PARTIAL state row per input
-        batch, then merge them with one FINAL pass."""
+        """Oversized input. Keyed: grace aggregation. Keyless: fold one
+        PARTIAL state row per input batch, then merge them with one
+        FINAL pass."""
         in_schema = self.children[0].schema
+        if self.keys:
+            tracker = get_device_tracker()
+            track_key = (id(self), ctx.partition_id)
+            head_bytes = sum(batch_device_bytes(b) for b in head)
+            tracker.track(track_key, head_bytes)
+            try:
+                n_b = choose_external_bucket_count(2 * head_bytes,
+                                                   ctx.config)
+                yield from self._grace_agg(rest, head, ctx, in_schema,
+                                           n_b, depth=0)
+            finally:
+                tracker.release(track_key)
+            return
         if self.mode is AggMode.FINAL:
             # keyless FINAL consumes tiny partial-state rows (one per
             # upstream batch); concat is still bounded
@@ -356,6 +376,87 @@ class HashAggregateExec(PhysicalOp):
         )
         yield final._aggregate_batch(
             concat_batches(partials, partial.schema, ctx.device))
+
+    _MAX_GRACE_DEPTH = 2
+    _GRACE_FANOUT = 4
+
+    def _grace_agg(self, rest, head, ctx: ExecContext, in_schema: Schema,
+                   n_b: int, depth: int, modulus: Optional[int] = None
+                   ) -> Iterator[ColumnBatch]:
+        """One grace level. A bucket over the limit is bucketed again by
+        the next hash bits (many distinct keys); at the greatest depth
+        (one hot key) a COMPLETE bucket aggregates chunk by chunk, which
+        no hash split can do, and a FINAL one whole: its states stay
+        mergeable."""
+        key_exprs = [e for e, _ in self.keys]
+        if modulus is None:
+            modulus, pid = n_b, None
+        else:
+            pid = subdivide_pid_fn(key_exprs, modulus, n_b)
+            modulus *= n_b
+        bucketed = bucket_stream(rest, key_exprs, n_b, ctx, in_schema,
+                                 head=head, pid_fn=pid)
+        ctx.metrics.add("external_agg_buckets", n_b)
+        try:
+            limit = ctx.config.max_materialize_rows
+            for b in range(n_b):
+                it = bucketed.bucket(b)
+                chunk, exceeded = collect_until(it, limit)
+                if not chunk:
+                    continue
+                if exceeded and depth < self._MAX_GRACE_DEPTH:
+                    ctx.metrics.add("external_agg_rebuckets", 1)
+                    yield from self._grace_agg(
+                        it, chunk, ctx, in_schema, self._GRACE_FANOUT,
+                        depth + 1, modulus)
+                    continue
+                if exceeded and self.mode is AggMode.COMPLETE:
+                    ctx.metrics.add("external_agg_hot_buckets", 1)
+                    yield from self._aggregate_chunked(
+                        itertools.chain(chunk, it), in_schema, limit,
+                        ctx.device)
+                    continue
+                chunk += list(it)
+                out = self._aggregate_batch(
+                    concat_batches(chunk, in_schema, ctx.device))
+                if out.num_rows:
+                    yield out
+        finally:
+            bucketed.cleanup()
+
+    def _aggregate_chunked(self, batches: Iterator[ColumnBatch],
+                           in_schema: Schema, limit: int,
+                           device: torch.device) -> Iterator[ColumnBatch]:
+        """One oversized COMPLETE bucket, streamed: a PARTIAL state per
+        chunk of just over `limit` rows, then one FINAL merge."""
+        partial = HashAggregateExec(
+            self.children[0], keys=list(self.keys), aggs=list(self.aggs),
+            mode=AggMode.PARTIAL)
+        partials: List[ColumnBatch] = []
+        chunk: List[ColumnBatch] = []
+        rows = 0
+        for cb in batches:
+            chunk.append(cb)
+            rows += cb.num_rows
+            if rows > limit:
+                partials.append(partial._aggregate_batch(
+                    concat_batches(chunk, in_schema, device)))
+                chunk, rows = [], 0
+        if chunk:
+            partials.append(partial._aggregate_batch(
+                concat_batches(chunk, in_schema, device)))
+        partials = [p for p in partials if p.num_rows]
+        if not partials:
+            return
+        final = HashAggregateExec(
+            _SchemaStub(partial.schema),
+            keys=[(ir.BoundCol(i, partial.schema.fields[i].dtype), n)
+                  for i, (_, n) in enumerate(self.keys)],
+            aggs=list(self.aggs), mode=AggMode.FINAL)
+        out = final._aggregate_batch(
+            concat_batches(partials, partial.schema, device))
+        if out.num_rows:
+            yield out
 
     # ------------------------------------------------------------------
     def _aggregate_batch(self, cb: ColumnBatch) -> ColumnBatch:

@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from blaze_tpu_torch.exprs.hashing import _mul32
 from blaze_tpu_torch.runtime.dispatch import host_bool
 
 KeyCols = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -50,14 +51,6 @@ def table_size_for(capacity: int) -> int:
     while t < 2 * capacity:
         t <<= 1
     return t
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for int64 `a` in [0, 2^32): split `c` in 16-bit
-    halves so no int64 product overflows."""
-    lo = a * (c & 0xFFFF)
-    hi = ((a * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
 
 
 def cheap_hash(key_cols: KeyCols, capacity: int) -> torch.Tensor:

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 #: every kernel source, csrc/<name>.cu
-SOURCES = ("stats", "compact", "segreduce")
+SOURCES = ("stats", "compact", "segreduce", "murmur3")
 BUILD_DIR = _PKG.parent / "build" / "blaze_tpu_torch"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]

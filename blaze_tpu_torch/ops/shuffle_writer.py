@@ -1,0 +1,249 @@
+"""Shuffle write: repartition batches into a .data/.index file pair.
+
+Reference counterpart: the native ShuffleWriterExec
+(shuffle_writer_exec.rs): Spark murmur3 pmod bucketing, per-partition
+buffers that spill to disk under memory pressure, and a final merge into
+one data file and an index of LE i64 offsets, which Spark commits
+(ArrowShuffleExchangeExec301.scala:531-602). The modes `single` and
+`round_robin` cover the JVM's other partitionings.
+
+Per batch, on the device: the partition id of every row (kernel K4 for
+`hash`, an arange for `round_robin`; the padding rows get the sentinel
+`num_partitions`), one stable sort by id, the partitions' start offsets
+by a binary search of the sorted ids, one gather of the columns. Then
+one copy of the offsets and one of the sorted batch to the host, where
+each partition's rows are a slice of one Arrow batch, encoded as one
+zstd IPC part.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs.eval import DeviceEvaluator
+from blaze_tpu_torch.exprs.optimize import bind_opt
+from blaze_tpu_torch.exprs.typing import infer_dtype
+from blaze_tpu_torch.io.ipc import encode_ipc_segment
+from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.ops.kernels import murmur3
+from blaze_tpu_torch.ops.project import batch_cvs
+from blaze_tpu_torch.ops.util import ensure_compacted, take_batch
+from blaze_tpu_torch.runtime import dispatch
+from blaze_tpu_torch.runtime.memory import get_pool
+from blaze_tpu_torch.types import Schema
+
+ROADMAP_EXCHANGE = ("ROADMAP 'Modules to port' item 9 (exchange tier, the "
+                    "rest)")
+
+MODES = ("hash", "single", "round_robin", "range")
+
+
+class PartitionBuffers:
+    """Per-partition buffers of encoded parts, with the reference's
+    buffer -> spill -> merge ladder (PartitionBuffer/spill_into,
+    shuffle_writer_exec.rs:66-194, :522-556), registered with the host
+    memory pool, which calls `spill` when over budget."""
+
+    def __init__(self, num_partitions: int, spill_dir: str):
+        self.num_partitions = num_partitions
+        self.buffers: List[bytearray] = [
+            bytearray() for _ in range(num_partitions)]
+        self.spills: List[Tuple[str, List[int]]] = []
+        self.spill_dir = spill_dir
+        self.mem_used = 0
+        self._pool = get_pool()
+        self._pool.register(id(self), self.spill)
+
+    def append(self, partition: int, part: bytes) -> None:
+        self.buffers[partition] += part
+        self.mem_used += len(part)
+        self._pool.grow(id(self), len(part))
+
+    def spill(self) -> int:
+        """Write the buffers to a spill file; returns the bytes
+        released."""
+        if self.mem_used == 0:
+            return 0
+        path = os.path.join(
+            self.spill_dir, f"blz-spill-{os.getpid()}-{id(self):x}-"
+                            f"{len(self.spills)}.tmp")
+        offsets = [0] * (self.num_partitions + 1)
+        pos = 0
+        with open(path, "wb") as f:
+            for p in range(self.num_partitions):
+                offsets[p] = pos
+                f.write(self.buffers[p])
+                pos += len(self.buffers[p])
+                self.buffers[p] = bytearray()
+        offsets[self.num_partitions] = pos
+        self.spills.append((path, offsets))
+        released, self.mem_used = self.mem_used, 0
+        return released
+
+    def finalize(self, data_path: str, index_path: str) -> List[int]:
+        """Write the .data/.index pair; returns the partitions' byte
+        lengths. Each partition is its buffered parts, then its parts of
+        each spill file in spill order: the layout of the JAX package's
+        assembly (runtime/native.py:356-376, cpp/blaze_host.cpp)."""
+        offsets = [0] * (self.num_partitions + 1)
+        pos = 0
+        try:
+            with open(data_path, "wb") as out:
+                for p in range(self.num_partitions):
+                    offsets[p] = pos
+                    out.write(self.buffers[p])
+                    pos += len(self.buffers[p])
+                    for path, so in self.spills:
+                        length = so[p + 1] - so[p]
+                        if length > 0:
+                            with open(path, "rb") as f:
+                                f.seek(so[p])
+                                out.write(f.read(length))
+                            pos += length
+                offsets[self.num_partitions] = pos
+            with open(index_path, "wb") as idx:
+                idx.write(struct.pack(f"<{len(offsets)}q", *offsets))
+        finally:
+            self.close()
+        return [offsets[p + 1] - offsets[p]
+                for p in range(self.num_partitions)]
+
+    def close(self) -> None:
+        """Leave the pool and delete the spill files."""
+        self._pool.shrink(id(self), self.mem_used)
+        self._pool.unregister(id(self))
+        self.mem_used = 0
+        self.buffers = [bytearray() for _ in range(self.num_partitions)]
+        for path, _ in self.spills:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        self.spills = []
+
+
+def spark_partition_ids(cb: ColumnBatch, key_exprs: Sequence[ir.Expr],
+                        num_partitions: int) -> torch.Tensor:
+    """Spark murmur3 pmod partition id of every row (kernel K4), int32
+    of the batch's capacity, on its device; rows past `num_rows` get
+    `num_partitions`. The batch must carry no pending selection."""
+    if cb.selection is not None:
+        raise ValueError("spark_partition_ids: compact the batch first")
+    ev = DeviceEvaluator(cb.schema, batch_cvs(cb), cb.capacity, cb.device)
+    cols = []
+    for e in key_exprs:
+        v, m = ev.evaluate(e)
+        cols.append((v, m, infer_dtype(e, cb.schema)))
+    return murmur3.partition_ids(cols, cb.num_rows, num_partitions)
+
+
+def round_robin_ids(cb: ColumnBatch, start: int, num_partitions: int
+                    ) -> torch.Tensor:
+    """Partition ids start, start + 1, ... mod n over the live rows;
+    the padding rows get `num_partitions`."""
+    idx = torch.arange(cb.capacity, dtype=torch.int64, device=cb.device)
+    pid = (idx + start) % num_partitions
+    pid = torch.where(idx < cb.num_rows, pid,
+                      torch.full_like(pid, num_partitions))
+    return pid.to(torch.int32)
+
+
+def scatter_by_partition(cb: ColumnBatch, pids: torch.Tensor,
+                         num_partitions: int
+                         ) -> Tuple[pa.RecordBatch, np.ndarray]:
+    """The live rows ordered by partition id, stably (input order inside
+    a partition), as one Arrow batch, and the row offset where each
+    partition starts (num_partitions + 1 entries, the last = num_rows).
+    The padding rows' sentinel id sorts them past every partition."""
+    sorted_ids, order = torch.sort(pids, stable=True)
+    bounds = torch.searchsorted(
+        sorted_ids, torch.arange(num_partitions + 1, dtype=torch.int32,
+                                 device=pids.device))
+    if bounds.device.type != "cpu":
+        dispatch.record("d2h_fetches")
+    offsets = bounds.cpu().numpy()
+    rb = take_batch(cb, order, cb.num_rows).to_arrow()
+    return rb, offsets
+
+
+def append_parts(bufs: PartitionBuffers, rb: pa.RecordBatch,
+                 offsets: np.ndarray, level: int) -> None:
+    """One encoded part per non-empty partition of a scattered batch."""
+    for p in np.flatnonzero(np.diff(offsets)):
+        start = int(offsets[p])
+        bufs.append(int(p), encode_ipc_segment(
+            rb.slice(start, int(offsets[p + 1]) - start), level))
+
+
+class ShuffleWriterExec(PhysicalOp):
+    """Writes one map task's shuffle output. The output stream is empty
+    (the lengths land in the index file), as in the reference
+    (shuffle_writer_exec.rs:753-780)."""
+
+    def __init__(self, child: PhysicalOp, key_exprs: Sequence[ir.Expr],
+                 num_partitions: int, data_file: str, index_file: str,
+                 mode: str = "hash"):
+        if mode not in MODES:
+            raise ValueError(f"shuffle writer mode {mode!r}")
+        if mode == "range":
+            raise NotImplementedError(
+                "range partitioning (bounds sampled at planning time) waits "
+                f"for {ROADMAP_EXCHANGE}")
+        if mode == "hash" and not key_exprs:
+            raise ValueError("hash partitioning requires keys")
+        if num_partitions < 1:
+            raise ValueError(f"num_partitions={num_partitions}")
+        self.children = [child]
+        self.key_exprs = [bind_opt(e, child.schema) for e in key_exprs]
+        self.num_partitions = num_partitions
+        self.data_file = data_file
+        self.index_file = index_file
+        self.mode = mode
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def describe(self) -> str:
+        return (f"ShuffleWriterExec({self.mode}, "
+                f"{self.num_partitions} partitions)")
+
+    def execute(self, partition: int, ctx: ExecContext
+                ) -> Iterator[ColumnBatch]:
+        cfg = ctx.config
+        n = self.num_partitions
+        level = cfg.ipc_compression_level
+        bufs = PartitionBuffers(n, cfg.spill_dir())
+        rr_next = partition  # round robin starts at the map partition
+        rows = 0
+        try:
+            for cb in self.children[0].execute(partition, ctx):
+                cb = ensure_compacted(cb)
+                if cb.num_rows == 0:
+                    continue
+                rows += cb.num_rows
+                if self.mode == "single" or n == 1:
+                    bufs.append(0, encode_ipc_segment(cb.to_arrow(), level))
+                    continue
+                if self.mode == "round_robin":
+                    pids = round_robin_ids(cb, rr_next, n)
+                    rr_next = (rr_next + cb.num_rows) % n
+                else:
+                    pids = spark_partition_ids(cb, self.key_exprs, n)
+                rb, offsets = scatter_by_partition(cb, pids, n)
+                append_parts(bufs, rb, offsets, level)
+        except BaseException:
+            bufs.close()
+            raise
+        lengths = bufs.finalize(self.data_file, self.index_file)
+        ctx.metrics.add("shuffle_rows_written", rows)
+        ctx.metrics.add("shuffle_bytes_written", sum(lengths))
+        return iter(())

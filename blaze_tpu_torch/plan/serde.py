@@ -5,9 +5,12 @@ Mirror of the reference's two-sided serde: the Scala builders
 (NativeConverters.scala convertExpr / Native*Exec proto emission) and the
 Rust decoder (`TryInto<Arc<dyn ExecutionPlan>>`, from_proto.rs:162-560).
 The wire format is the JAX package's, unchanged: TaskDefinition bytes
-from either package decode in the other. This slice carries the
-parquet_scan, filter, project and hash_aggregate arms; every other plan
-arm raises NotImplementedError naming the ROADMAP item that brings it.
+from either package decode in the other. The port carries the
+parquet_scan, ipc_reader, filter, project, hash_aggregate,
+shuffle_writer (hash, single, round_robin) and ipc_writer arms, and a
+task's local file resources (the IpcReader inputs of a reduce task);
+every other plan arm, range partitioning and remote segments raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -19,8 +22,18 @@ from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.ops.base import PhysicalOp
 from blaze_tpu_torch.ops.filter import FilterExec
 from blaze_tpu_torch.ops.hash_aggregate import AggMode, HashAggregateExec
+from blaze_tpu_torch.ops.ipc_reader import (
+    FileSegment,
+    IpcReaderExec,
+    IpcReadMode,
+)
+from blaze_tpu_torch.ops.ipc_writer import IpcWriterExec
 from blaze_tpu_torch.ops.parquet_scan import FileRange, ParquetScanExec
 from blaze_tpu_torch.ops.project import ProjectExec
+from blaze_tpu_torch.ops.shuffle_writer import (
+    ROADMAP_EXCHANGE,
+    ShuffleWriterExec,
+)
 
 _ROADMAP_OPS = "ROADMAP 'Modules to port'"
 
@@ -258,6 +271,17 @@ _MODE_TO_PB = {
 }
 _PB_TO_MODE = {v: k for k, v in _MODE_TO_PB.items()}
 
+_IPC_TO_PB = {
+    IpcReadMode.CHANNEL: pb.CHANNEL,
+    IpcReadMode.CHANNEL_UNCOMPRESSED: pb.CHANNEL_UNCOMPRESSED,
+    IpcReadMode.CHANNEL_AND_FILE_SEGMENT: pb.CHANNEL_AND_FILE_SEGMENT,
+}
+_PB_TO_IPC = {v: k for k, v in _IPC_TO_PB.items()}
+
+_SHUFFLE_TO_PB = {"hash": pb.HASH, "single": pb.SINGLE,
+                  "round_robin": pb.ROUND_ROBIN, "range": pb.RANGE}
+_PB_TO_SHUFFLE = {v: k for k, v in _SHUFFLE_TO_PB.items()}
+
 
 def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
     kind = p.WhichOneof("kind")
@@ -281,6 +305,10 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
             else None
         )
         return ParquetScanExec(groups, schema, projection, pruning)
+    if kind == "ipc_reader":
+        r = p.ipc_reader
+        return IpcReaderExec(r.resource_id, schema_from_proto(r.schema),
+                             r.num_partitions, _PB_TO_IPC[r.mode])
     if kind == "project":
         return ProjectExec(
             plan_from_proto(p.project.input),
@@ -302,6 +330,16 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
             aggs=[(expr_from_proto(a.expr), a.name) for a in h.aggs],
             mode=_PB_TO_MODE[h.mode],
         )
+    if kind == "shuffle_writer":
+        sw = p.shuffle_writer
+        return ShuffleWriterExec(
+            plan_from_proto(sw.input),
+            [expr_from_proto(k) for k in sw.keys],
+            sw.num_partitions, sw.data_file, sw.index_file,
+            _PB_TO_SHUFFLE[sw.mode])
+    if kind == "ipc_writer":
+        return IpcWriterExec(plan_from_proto(p.ipc_writer.input),
+                             p.ipc_writer.resource_id)
     raise NotImplementedError(
         f"plan node {kind!r} waits for {_ROADMAP_OPS}"
     )
@@ -321,6 +359,12 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
             ps.pruning_predicate.CopyFrom(
                 expr_to_proto(op.pruning_predicate)
             )
+    elif isinstance(op, IpcReaderExec):
+        r = p.ipc_reader
+        r.resource_id = op.resource_id
+        r.schema.CopyFrom(schema_to_proto(op.schema))
+        r.num_partitions = op.partition_count
+        r.mode = _IPC_TO_PB[op.mode]
     elif isinstance(op, ProjectExec):
         p.project.input.CopyFrom(plan_to_proto(op.children[0]))
         for e, name in op.exprs:
@@ -336,6 +380,18 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
         for a, name in op.aggs:
             h.aggs.add(expr=expr_to_proto(a), name=name)
         h.mode = _MODE_TO_PB[op.mode]
+    elif isinstance(op, ShuffleWriterExec):
+        sw = p.shuffle_writer
+        sw.input.CopyFrom(plan_to_proto(op.children[0]))
+        for k in op.key_exprs:
+            sw.keys.add().CopyFrom(expr_to_proto(k))
+        sw.num_partitions = op.num_partitions
+        sw.data_file = op.data_file
+        sw.index_file = op.index_file
+        sw.mode = _SHUFFLE_TO_PB[op.mode]
+    elif isinstance(op, IpcWriterExec):
+        p.ipc_writer.input.CopyFrom(plan_to_proto(op.children[0]))
+        p.ipc_writer.resource_id = op.resource_id
     else:
         raise NotImplementedError(
             f"plan node {type(op).__name__} waits for {_ROADMAP_OPS}"
@@ -343,22 +399,42 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
     return p
 
 
-def task_to_proto(op: PhysicalOp, partition: int,
-                  task_id: str = "task") -> bytes:
+def task_to_proto(op: PhysicalOp, partition: int, task_id: str = "task",
+                  file_resources=None) -> bytes:
+    """TaskDefinition bytes. `file_resources` is {resource_id:
+    [FileSegment, ...]}: the local segments an IpcReader leaf of the task
+    reads, shipped with it, in read order."""
     t = pb.TaskDefinitionProto(partition=partition, task_id=task_id)
     t.plan.CopyFrom(plan_to_proto(op))
+    for rid, segments in (file_resources or {}).items():
+        rp = t.file_resources.add(resource_id=rid)
+        for seg in segments:
+            if not isinstance(seg, FileSegment):
+                raise NotImplementedError(
+                    f"file resource {type(seg).__name__}: remote segments "
+                    f"wait for {ROADMAP_EXCHANGE}")
+            o = rp.ordered.add()
+            o.local.path = seg.path
+            o.local.start = seg.offset
+            o.local.length = seg.length
     return t.SerializeToString()
 
 
 def task_from_proto(data: bytes):
-    """(op, partition, task_id) from TaskDefinition bytes.
-    File resources feed IpcReader leaves, which wait for ROADMAP
-    'Modules to port' item 6 (exchange tier)."""
+    """(op, partition, task_id, resources) from TaskDefinition bytes;
+    `resources` maps each file resource's id to a provider giving its
+    segments for any partition."""
     t = pb.TaskDefinitionProto()
     t.ParseFromString(data)
-    if len(t.file_resources):
-        raise NotImplementedError(
-            "task file resources (IpcReader inputs) wait for ROADMAP "
-            "'Modules to port' item 6 (exchange tier)"
-        )
-    return plan_from_proto(t.plan), t.partition, t.task_id
+    resources = {}
+    for rp in t.file_resources:
+        # the legacy local-only field first, then the ordered list
+        segs = [FileSegment(s.path, s.start, s.length) for s in rp.segments]
+        for o in rp.ordered:
+            if o.WhichOneof("kind") != "local":
+                raise NotImplementedError(
+                    f"remote file segments wait for {ROADMAP_EXCHANGE}")
+            segs.append(FileSegment(o.local.path, o.local.start,
+                                    o.local.length))
+        resources[rp.resource_id] = (lambda ss: (lambda p: ss))(segs)
+    return plan_from_proto(t.plan), t.partition, t.task_id, resources

@@ -55,12 +55,15 @@ def require_device(device: torch.device) -> None:
 
 def decode_task(task_bytes: bytes, ctx: ExecContext):
     """Decode TaskDefinition bytes into a runnable (op, partition) pair
-    and install the task's identity into the context."""
+    and install the task's identity and file resources into the
+    context."""
     from blaze_tpu_torch.plan.serde import task_from_proto
 
-    op, partition, task_id = task_from_proto(task_bytes)
+    op, partition, task_id, resources = task_from_proto(task_bytes)
     ctx.partition_id = partition
     ctx.task_id = task_id
+    for rid, provider in resources.items():
+        ctx.resources.setdefault(rid, provider)
     return op, partition
 
 

@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (`blaze_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py            # the full run: 16,777,216 parquet rows
-                                     # (q6, select), 4,194,304 (grouped)
+                                     # (q6, select, exchange_agg, grace),
+                                     # 4,194,304 (grouped, repartition)
     python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
 
 Phases, one JSON line each:
@@ -16,8 +17,13 @@ Phases, one JSON line each:
    at the main paths' shapes, with NaN, +/-inf, all-masked, all-kept,
    out-of-range segment ids, empty segments and int64-wrap inputs from
    a seeded numpy generator; K3 also at both ends of its domain (1024
-   and 2^23 segments). Then CUDA-event timings beside each kernel's
-   bound and, where there is one, the PyTorch library call.
+   and 2^23 segments). Then K4 (Spark murmur3 partition ids), bit for
+   bit: every fixed-width key type, nullable and not, one, three and
+   nine key columns, int extremes, +/-0.0, NaNs of several payloads,
+   subnormals and +/-inf, for n in 1, 2, 200, 1024 and the grace moduli
+   32, 128, 512, at 4096, 16,384 and 2^24 rows. Then CUDA-event timings
+   beside each kernel's bound and, where there is one, the PyTorch
+   library call.
 4. path: a zstd parquet file of `--rows` rows (TPC-DS store_sales-shaped
    item/qty/price, as in bench.py) goes through the port's
    `execute_task` on cuda twice: the q6 task (filter, project, keyless
@@ -31,7 +37,22 @@ Phases, one JSON line each:
    float64. Each kernel's launch count is zeroed before the task it
    serves and must be > 0 after it. Each task except the two-phase one
    then runs once more under torch.profiler for its device busy time.
-   The shape of every kernel launch on these paths is noted.
+   Then the exchange, over the same `--rows` cut into 4 parquet splits:
+   - exchange_agg: Spark's two-stage plan of bench.py's grouped_agg with
+     spark.sql.shuffle.partitions 200: 4 map TaskDefinitions (scan ->
+     project g -> PARTIAL -> ShuffleWriter hash g), then 200 reduce
+     TaskDefinitions (IpcReader over the map outputs' file segments ->
+     FINAL), all through execute_task; the union equals the numpy
+     oracle and every group lies in the reducer its Spark hash names;
+   - repartition: one map task (k = CAST(item AS BIGINT), hash k into
+     200), then 200 reduce tasks (IpcReader -> Arrow); each partition
+     holds exactly the rows numpy's Spark hash sends there, in order;
+   - grace: one keyed COMPLETE GROUP BY item (131,072 keys) over all
+     `--rows` rows, past max_materialize_rows, so grace buckets it
+     through K4; equal to a numpy oracle; its bucket counters printed.
+   Each prints its wall, rows/s, launches, transfers and syncs, and
+   runs once more under torch.profiler. The shape of every kernel
+   launch on these paths is noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
    phase 3, at every launch shape of phase 4 that phase 3 did not check.
 
@@ -402,21 +423,189 @@ def time_kernels(torch, stats, compact, rng, n: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: K4 (murmur3 partition ids)
+# ---------------------------------------------------------------------------
+
+# key types by name: (numpy storage dtype, port DataType constructor)
+K4_TYPES = {
+    "bool": (np.bool_, "bool_"), "int8": (np.int8, "int8"),
+    "int16": (np.int16, "int16"), "int32": (np.int32, "int32"),
+    "date32": (np.int32, "date32"), "int64": (np.int64, "int64"),
+    "timestamp_us": (np.int64, "timestamp_us"),
+    "decimal18": (np.int64, None), "float32": (np.float32, "float32"),
+    "float64": (np.float64, "float64"),
+}
+# float keys whose Spark hash differs from a naive one: signed zeros,
+# NaNs of several payloads and signs, subnormals, infinities, extremes
+F32_EDGE_BITS = [0x00000000, 0x80000000, 0x7FC00000, 0xFFC00000,
+                 0x7F800001, 0x7FFFFFFF, 0xFFFFFFFF, 0x00000001,
+                 0x807FFFFF, 0x7F800000, 0xFF800000, 0x7F7FFFFF,
+                 0x00800000]
+F64_EDGE_BITS = [0x0, 0x8000000000000000, 0x7FF8000000000000,
+                 0xFFF8000000000000, 0x7FF0000000000001,
+                 0x7FFFFFFFFFFFFFFF, 0xFFFFFFFFFFFFFFFF, 0x1,
+                 0x800FFFFFFFFFFFFF, 0x7FF0000000000000,
+                 0xFFF0000000000000, 0x7FEFFFFFFFFFFFFF,
+                 0x0010000000000000]
+# the partition counts the checks use: Spark's defaults and the grace
+# moduli (external_buckets 32, then x4 per level)
+K4_NS = (1, 2, 200, 1024, 32, 128, 512)
+
+
+def k4_dtype(name: str):
+    from blaze_tpu_torch.types import DataType
+
+    ctor = K4_TYPES[name][1]
+    return DataType.decimal(18, 2) if ctor is None \
+        else getattr(DataType, ctor)()
+
+
+def k4_column(rng, name: str, n: int, nullable: bool):
+    """(values, validity or None) host arrays of one key column, with
+    the type's edge values on the first rows."""
+    np_dt = K4_TYPES[name][0]
+    if np_dt == np.bool_:
+        v = rng.random(n) < 0.5
+    elif np.issubdtype(np_dt, np.integer):
+        info = np.iinfo(np_dt)
+        v = rng.integers(info.min, info.max, n, dtype=np_dt,
+                         endpoint=True)
+        edges = np.array([info.min, info.max, 0, -1, 1], np_dt)
+        v[:len(edges)] = edges[:n]
+    else:
+        v = ((rng.random(n) - 0.5) * 1e6).astype(np_dt)
+        ints, bits = ((np.uint32, F32_EDGE_BITS) if np_dt == np.float32
+                      else (np.uint64, F64_EDGE_BITS))
+        edges = np.array(bits, ints).view(np_dt)
+        k = min(n, len(edges))
+        v[:k] = edges[:k]
+        # and some more, scattered
+        pos = rng.integers(0, n, min(n, 64))
+        v[pos] = edges[rng.integers(0, len(edges), len(pos))]
+    m = (rng.random(n) < 0.8) if nullable else None
+    return v, m
+
+
+def k4_cases():
+    """(case name, [(type, nullable), ...]): every key type nullable and
+    not as one column, three-column mixes, and nine columns (more than
+    one launch takes)."""
+    cases = [(f"{t}{'_null' if null else ''}", [(t, null)])
+             for t in K4_TYPES for null in (False, True)]
+    cases += [
+        ("int32+float64_null+int8", [("int32", False), ("float64", True),
+                                      ("int8", False)]),
+        ("int64_null+float32+bool_null", [("int64", True),
+                                           ("float32", False),
+                                           ("bool", True)]),
+        ("date32+decimal18+int16_null", [("date32", False),
+                                          ("decimal18", False),
+                                          ("int16", True)]),
+        ("nine_columns", [(t, i % 2 == 1) for i, t in enumerate(
+            ["int32", "float64", "int64", "bool", "float32", "int16",
+             "date32", "int8", "timestamp_us"])]),
+    ]
+    return cases
+
+
+def k4_inputs(torch, rng, spec, n: int):
+    return [(torch.from_numpy(np.ascontiguousarray(v)).cuda(),
+             None if m is None else torch.from_numpy(m).cuda(),
+             k4_dtype(t))
+            for (t, null) in spec
+            for v, m in [k4_column(rng, t, n, null)]]
+
+
+def check_k4(torch, murmur3, rng, sizes, ns=K4_NS, cases=None):
+    """K4 against its plain version, bit for bit, at each capacity for
+    every case and partition count; every other case leaves 13 rows of
+    padding, whose ids must be the sentinel n. Returns the cases
+    checked and the (capacity, n, key signature) shapes covered."""
+    checked = 0
+    covered = set()
+    for size in sizes:
+        for i, (name, spec) in enumerate(cases or k4_cases()):
+            cols = k4_inputs(torch, rng, spec, size)
+            num_rows = size - 13 if i % 2 and size > 13 else size
+            for n in ns:
+                got = murmur3.partition_ids(cols, num_rows, n)
+                exp = murmur3.murmur3_plain(cols, num_rows, n)
+                torch.cuda.synchronize()
+                if not torch.equal(got, exp):
+                    bad = int((got != exp).sum())
+                    raise AssertionError(
+                        f"K4 partition_ids {name} rows={size} n={n}: "
+                        f"{bad} ids differ from the plain version")
+                checked += 1
+                covered.add(k4_shape(size, n, cols))
+    return checked, covered
+
+
+def k4_shape(capacity: int, n: int, cols):
+    """The shape of a K4 call: capacity, n and the key columns' storage
+    dtypes with whether each has validity."""
+    return (capacity, n, tuple((str(v.dtype).replace("torch.", ""),
+                                m is not None) for v, m, *_ in cols))
+
+
+def check_k4_at(torch, murmur3, rng, shapes):
+    """K4 against its plain version at launch shapes noted on the paths
+    (random keys of the noted storage dtypes and validity)."""
+    checked = 0
+    for cap, n, sig in shapes:
+        # storage dtype names are K4_TYPES names too
+        c, _ = check_k4(torch, murmur3, rng, [cap], ns=(n,),
+                        cases=[("path_shape", list(sig))])
+        checked += c
+    return checked
+
+
+def time_k4(torch, murmur3, rng, rows: int, key: str, nullable: bool,
+            n: int):
+    """K4 and its plain version on one key of type `key` at `rows` rows.
+    Bound: each key (and validity byte) read once and one int32 id
+    written per row; some 20 integer operations a word. No PyTorch call
+    computes Spark's murmur3."""
+    cols = k4_inputs(torch, rng, [(key, nullable)], rows)
+    width = np.dtype(K4_TYPES[key][0]).itemsize
+    nbytes = rows * (width + int(nullable) + 4)
+    words = 2 if width == 8 else 1
+    b_ms, b_by = bound(nbytes, rows * 20 * words, CUDA_CORE_OPS_PER_S)
+    return {"rows": rows, "key": key, "nullable": nullable, "n": n,
+            "ms": cuda_ms(torch, lambda: murmur3.partition_ids(
+                cols, rows, n)),
+            "plain_ms": cuda_ms(torch, lambda: murmur3.murmur3_plain(
+                cols, rows, n)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the path
 # ---------------------------------------------------------------------------
 
-def write_store_sales(path: str, rows: int, seed: int):
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
+def store_sales_columns(rows: int, seed: int):
+    """(item, qty, price) as bench.py:880-897 makes them."""
     rng = np.random.default_rng(seed)
     item = rng.integers(0, 1 << 17, rows).astype(np.int32)
     qty = rng.integers(1, 10, rows).astype(np.int32)
     price = (rng.random(rows) * 100).astype(np.float32)
+    return item, qty, price
+
+
+def write_parquet(path: str, item, qty, price):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
     pq.write_table(
         pa.table({"item": item, "qty": qty, "price": price}), path,
         compression="zstd", row_group_size=1 << 20,
     )
+
+
+def write_store_sales(path: str, rows: int, seed: int):
+    item, qty, price = store_sales_columns(rows, seed)
+    write_parquet(path, item, qty, price)
     return item, qty, price
 
 
@@ -451,6 +640,8 @@ LAUNCH_SHAPE = {
     "masked_stats": lambda values, mask: values.numel(),
     "compact_perm": lambda keep: keep.numel(),
     "segment_reduce": lambda op, gid, values, k, *_: (values.numel(), k),
+    "murmur3": lambda group, h_in, num_rows, cap, n, emit_hash:
+        k4_shape(cap, n, group),
 }
 
 
@@ -507,19 +698,25 @@ def run_task(torch, blob, kernels):
 
 
 def profile_task(torch, blob, task: str, wall: float):
-    """Run the task once more under torch.profiler: device busy time
-    (every kernel and copy CUPTI saw, ours included) against the task's
-    unprofiled wall gives the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Run the task once more under torch.profiler (profile_run)."""
     from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.runtime.executor import execute_task
+
+    profile_run(torch, lambda: list(execute_task(
+        blob, ExecContext(device="cuda"))), task, wall)
+
+
+def profile_run(torch, fn, task: str, wall: float):
+    """Run fn() once more under torch.profiler: device busy time (every
+    kernel and copy CUPTI saw, ours included) against the unprofiled
+    wall gives the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        list(execute_task(blob, ExecContext(device="cuda")))
+        fn()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
@@ -529,7 +726,8 @@ def profile_task(torch, blob, task: str, wall: float):
     ours = [e for e in dev if any(
         k in e.key for k in ("stats_partial", "stats_final", "block_counts",
                              "scan_counts", "scatter_rows", "seg_init",
-                             "seg_shared", "seg_global", "seg_decode"))]
+                             "seg_shared", "seg_global", "seg_decode",
+                             "partition_ids"))]
     emit({"phase": "profile", "task": task,
           "device_busy_ms": busy_ms if dev else "not measured",
           "device_calls": sum(e.count for e in dev),
@@ -657,36 +855,42 @@ def final_plan(states, state_schema, device):
                              mode=AggMode.FINAL)
 
 
-def grouped_oracle(item, qty, price):
+def keyed_oracle(g, qty, price, groups: int, key: str = "g"):
     """bench.py's numpy oracle (bench.py:1059-1085) in float64: per
-    non-empty group g, SUM, MIN and MAX of price and AVG of qty."""
-    g = item.astype(np.int64) % GROUPS
-    s = np.bincount(g, weights=price.astype(np.float64), minlength=GROUPS)
-    cnt = np.bincount(g, minlength=GROUPS)
-    qs = np.bincount(g, weights=qty.astype(np.float64), minlength=GROUPS)
+    non-empty group of the keys `g` in [0, groups), SUM, MIN and MAX of
+    price and AVG of qty."""
+    g = g.astype(np.int64)
+    s = np.bincount(g, weights=price.astype(np.float64), minlength=groups)
+    cnt = np.bincount(g, minlength=groups)
+    qs = np.bincount(g, weights=qty.astype(np.float64), minlength=groups)
     order = np.argsort(g, kind="stable")
     gs = g[order]
     ps = price[order]
-    bounds = np.searchsorted(gs, np.arange(GROUPS + 1))
+    bounds = np.searchsorted(gs, np.arange(groups + 1))
     starts = np.minimum(bounds[:-1], len(ps) - 1)
     lo = np.minimum.reduceat(ps, starts)
     hi = np.maximum.reduceat(ps, starts)
     nz = bounds[:-1] < bounds[1:]
-    return {"g": np.flatnonzero(nz), "s": s[nz], "lo": lo[nz],
+    return {key: np.flatnonzero(nz), "s": s[nz], "lo": lo[nz],
             "hi": hi[nz], "aq": qs[nz] / cnt[nz]}
 
 
-def check_grouped(table, exp, task: str):
+def grouped_oracle(item, qty, price):
+    """The oracle of bench.py's grouped_agg: groups g = item % 4096."""
+    return keyed_oracle(item.astype(np.int64) % GROUPS, qty, price, GROUPS)
+
+
+def check_grouped(table, exp, task: str, key: str = "g"):
     """The group set, MIN, MAX and AVG(qty) exact; SUM within 1e-9
     relative per group. Returns the largest relative SUM error."""
-    g = table.column("g").to_numpy()
+    g = table.column(key).to_numpy()
     order = np.argsort(g)
     cols = {n: table.column(n).to_numpy()[order] for n in
             ("s", "lo", "hi", "aq")}
-    if table.num_rows != len(exp["g"]) or not np.array_equal(
-            g[order], exp["g"]):
+    if table.num_rows != len(exp[key]) or not np.array_equal(
+            g[order], exp[key]):
         raise AssertionError(f"{task}: {table.num_rows} groups, numpy "
-                             f"{len(exp['g'])}, or the group sets differ")
+                             f"{len(exp[key])}, or the group sets differ")
     if any(table.column(n).null_count for n in table.column_names):
         raise AssertionError(f"{task}: null results")
     rel = np.abs(cols["s"] - exp["s"]) / np.maximum(np.abs(exp["s"]),
@@ -759,6 +963,254 @@ def grouped_phase(torch, rows: int, seed: int, kernels):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: the shuffle exchange and grace aggregation
+# ---------------------------------------------------------------------------
+
+# spark.sql.shuffle.partitions' default
+SHUFFLE_PARTITIONS = 200
+# map tasks of the exchange: each reads one of this many splits
+MAP_SPLITS = 4
+ITEMS = 1 << 17  # distinct item keys of store_sales
+
+
+def exchange_map_plan(scan, data: str, index: str,
+                      partitions: int = SHUFFLE_PARTITIONS):
+    """The map stage of Spark's plan for bench.py's grouped_agg:
+    PARTIAL aggregate by g, then a hash exchange on g."""
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import AggMode
+    from blaze_tpu_torch.ops.shuffle_writer import ShuffleWriterExec
+
+    return ShuffleWriterExec(grouped_plan(scan, AggMode.PARTIAL),
+                             [Col("g")], partitions, data, index)
+
+
+def exchange_reduce_plan(state_schema, partitions: int = SHUFFLE_PARTITIONS):
+    """The reduce stage: the partition's shuffle segments, then FINAL."""
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import AggMode, HashAggregateExec
+    from blaze_tpu_torch.ops.ipc_reader import IpcReaderExec, IpcReadMode
+
+    reader = IpcReaderExec("shuffle", state_schema, partitions,
+                           IpcReadMode.CHANNEL_AND_FILE_SEGMENT)
+    return HashAggregateExec(reader, keys=[(Col("g"), "g")],
+                             aggs=grouped_aggs(), mode=AggMode.FINAL)
+
+
+def repartition_map_plan(scan, data: str, index: str,
+                         partitions: int = SHUFFLE_PARTITIONS):
+    """The map side of repartition(n, k), or of a sort-merge join on k:
+    k = CAST(item AS BIGINT), price, qty, hash-exchanged on k."""
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import ProjectExec
+    from blaze_tpu_torch.ops.shuffle_writer import ShuffleWriterExec
+    from blaze_tpu_torch.types import DataType
+
+    proj = ProjectExec(scan, [(Col("item").cast(DataType.int64()), "k"),
+                              (Col("price"), "price"), (Col("qty"), "qty")])
+    return ShuffleWriterExec(proj, [Col("k")], partitions, data, index)
+
+
+def repartition_reduce_plan(schema, partitions: int = SHUFFLE_PARTITIONS):
+    from blaze_tpu_torch.ops.ipc_reader import IpcReaderExec, IpcReadMode
+
+    return IpcReaderExec("shuffle", schema, partitions,
+                         IpcReadMode.CHANNEL_AND_FILE_SEGMENT)
+
+
+def grace_plan(scan):
+    """GROUP BY item (131,072 keys), keyed COMPLETE SUM/MIN/MAX(price),
+    AVG(qty): over max_materialize_rows it takes grace aggregation."""
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import AggMode, HashAggregateExec
+
+    return HashAggregateExec(scan, keys=[(Col("item"), "item")],
+                             aggs=grouped_aggs(), mode=AggMode.COMPLETE)
+
+
+def reduce_tasks(plan, outputs, partitions: int):
+    """One TaskDefinition per reduce partition: `plan` over that
+    partition's non-empty segment of each map output (data, index), in
+    map order, shipped as the task's file resources."""
+    from blaze_tpu_torch.io.ipc import partition_ranges
+    from blaze_tpu_torch.ops.ipc_reader import FileSegment
+    from blaze_tpu_torch.plan.serde import task_to_proto
+
+    ranges = [partition_ranges(index) for _, index in outputs]
+    blobs = []
+    for r in range(partitions):
+        segs = [FileSegment(data, *rng_[r])
+                for (data, _), rng_ in zip(outputs, ranges) if rng_[r][1]]
+        blobs.append(task_to_proto(plan, r, file_resources={"shuffle": segs}))
+    return blobs
+
+
+def run_stage(torch, blobs):
+    """Run TaskDefinitions one after another on cuda; returns each
+    task's Arrow batches and the sum of their metric counters."""
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    outs, counters = [], {}
+    for blob in blobs:
+        ctx = ExecContext(device="cuda")
+        outs.append(list(execute_task(blob, ctx)))
+        for k, v in ctx.metrics.counters.items():
+            counters[k] = counters.get(k, 0) + v
+    return outs, counters
+
+
+def spark_pids(keys: np.ndarray, n: int) -> np.ndarray:
+    """Spark's partition id of int32 or int64 keys, by the port's numpy
+    host twins (an implementation apart from K4 and its torch chain)."""
+    from blaze_tpu_torch.exprs import hashing
+
+    if keys.dtype == np.int64:
+        h = hashing._np_hash_long(keys, np.uint32(42))
+    else:
+        h = hashing._np_hash_int(keys.astype(np.int32).view(np.uint32),
+                                 np.uint32(42))
+    r = h.view(np.int32).astype(np.int64) % n
+    return r.astype(np.int32)
+
+
+def path_line(task: str, rows: int, wall: float, launches, transfers,
+              **extra):
+    emit({"phase": "path", "task": task, "rows": rows, "wall_s": wall,
+          "rows_per_s": rows / wall, "launches": launches,
+          "transfers": transfers, **extra})
+
+
+def exchange_phase(torch, rows: int, seed: int, kernels):
+    """The exchange_agg, repartition and grace paths over one
+    store_sales table of `rows` rows cut into MAP_SPLITS files."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.plan.serde import task_to_proto
+
+    work = os.path.join(REPO, "build", "chip_smoke_exchange")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        item, qty, price = store_sales_columns(rows, seed)
+        split = rows // MAP_SPLITS
+        paths = []
+        for i in range(MAP_SPLITS):
+            sl = slice(i * split, (i + 1) * split)
+            paths.append(os.path.join(work, f"store_sales_{i}.parquet"))
+            write_parquet(paths[-1], item[sl], qty[sl], price[sl])
+        item, qty, price = (a[:split * MAP_SPLITS] for a in (item, qty, price))
+        write_s = time.perf_counter() - t0
+
+        # the scan's partition i is split i, which map task i reads
+        splits = ParquetScanExec([[FileRange(p)] for p in paths])
+
+        # exchange_agg: MAP_SPLITS map tasks, then the reduce tasks
+        outputs = [(os.path.join(work, f"agg_{i}.data"),
+                    os.path.join(work, f"agg_{i}.index"))
+                   for i in range(MAP_SPLITS)]
+        maps = [exchange_map_plan(splits, *outputs[i])
+                for i in range(MAP_SPLITS)]
+        map_blobs = [task_to_proto(m, i) for i, m in enumerate(maps)]
+        reduce_plan = exchange_reduce_plan(maps[0].schema)
+
+        def exchange_agg():
+            _, mc = run_stage(torch, map_blobs)
+            outs, _ = run_stage(torch, reduce_tasks(
+                reduce_plan, outputs, SHUFFLE_PARTITIONS))
+            return outs, mc
+
+        (outs, mc), wall, launches, transfers = run_counted(
+            torch, exchange_agg, kernels)
+        tables = [pa.Table.from_batches(o) for o in outs if o]
+        table = pa.concat_tables(tables)
+        err = check_grouped(table, grouped_oracle(item, qty, price),
+                            "exchange_agg")
+        for r, o in enumerate(outs):
+            for rb in o:
+                g = rb.column(0).to_numpy()
+                if not (spark_pids(g, SHUFFLE_PARTITIONS) == r).all():
+                    raise AssertionError(
+                        f"exchange_agg: reducer {r} holds a group of "
+                        "another partition")
+        for name in ("murmur3", "segment_reduce", "compact_perm"):
+            if launches[name] <= 0:
+                raise AssertionError(f"exchange_agg did not launch {name}")
+        results["exchange_agg"] = {"launches": launches, "wall_s": wall}
+        path_line("exchange_agg", rows, wall, launches, transfers,
+                  map_tasks=MAP_SPLITS, reduce_tasks=SHUFFLE_PARTITIONS,
+                  groups=table.num_rows, sum_max_rel_err=err,
+                  parquet_write_s=write_s,
+                  shuffle_bytes_written=mc["shuffle_bytes_written"],
+                  shuffle_rows_written=mc["shuffle_rows_written"])
+        profile_run(torch, exchange_agg, "exchange_agg", wall)
+
+        # repartition: one map task over the first split, reduce to Arrow
+        rp_out = [(os.path.join(work, "rp.data"),
+                   os.path.join(work, "rp.index"))]
+        rp_map = repartition_map_plan(splits, *rp_out[0])
+        rp_blob = task_to_proto(rp_map, 0)
+        rp_reduce = repartition_reduce_plan(rp_map.schema)
+
+        def repartition():
+            _, mc = run_stage(torch, [rp_blob])
+            outs, _ = run_stage(torch, reduce_tasks(
+                rp_reduce, rp_out, SHUFFLE_PARTITIONS))
+            return outs, mc
+
+        (outs, mc), wall, launches, transfers = run_counted(
+            torch, repartition, kernels)
+        k = item[:split].astype(np.int64)
+        pid = spark_pids(k, SHUFFLE_PARTITIONS)
+        for r, o in enumerate(outs):
+            idx = np.flatnonzero(pid == r)
+            got = pa.Table.from_batches(o) if o else None
+            n_got = got.num_rows if got is not None else 0
+            if n_got != len(idx) or (n_got and not (
+                    np.array_equal(got.column("k").to_numpy(), k[idx])
+                    and np.array_equal(got.column("price").to_numpy(),
+                                       price[idx])
+                    and np.array_equal(got.column("qty").to_numpy(),
+                                       qty[idx]))):
+                raise AssertionError(
+                    f"repartition: partition {r} holds {n_got} rows, "
+                    f"numpy {len(idx)}, or other rows or order")
+        if launches["murmur3"] <= 0:
+            raise AssertionError("repartition did not launch murmur3")
+        results["repartition"] = {"launches": launches, "wall_s": wall}
+        path_line("repartition", split, wall, launches, transfers,
+                  reduce_tasks=SHUFFLE_PARTITIONS,
+                  shuffle_bytes_written=mc["shuffle_bytes_written"],
+                  shuffle_rows_written=mc["shuffle_rows_written"])
+        profile_run(torch, repartition, "repartition", wall)
+
+        # grace: one keyed COMPLETE task over the whole table
+        g_blob = task_to_proto(grace_plan(ParquetScanExec(
+            [[FileRange(p) for p in paths]])), 0)
+        (outs, gc), wall, launches, transfers = run_counted(
+            torch, lambda: run_stage(torch, [g_blob]), kernels)
+        table = pa.Table.from_batches(outs[0])
+        err = check_grouped(table, keyed_oracle(item, qty, price, ITEMS,
+                                                "item"), "grace", "item")
+        if launches["murmur3"] <= 0 or gc.get("external_agg_buckets", 0) < 2:
+            raise AssertionError("grace did not bucket through murmur3")
+        results["grace"] = {"launches": launches, "wall_s": wall}
+        path_line("grace", rows, wall, launches, transfers,
+                  groups=table.num_rows, sum_max_rel_err=err,
+                  external_agg_buckets=gc.get("external_agg_buckets", 0),
+                  external_agg_rebuckets=gc.get("external_agg_rebuckets", 0),
+                  external_agg_hot_buckets=gc.get(
+                      "external_agg_hot_buckets", 0))
+        profile_run(torch, lambda: run_stage(torch, [g_blob]), "grace", wall)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
@@ -796,7 +1248,13 @@ def main() -> int:
           "device_count": torch.cuda.device_count(), "imports": imports})
 
     # 2. build
-    from blaze_tpu_torch.ops.kernels import _build, compact, segreduce, stats
+    from blaze_tpu_torch.ops.kernels import (
+        _build,
+        compact,
+        murmur3,
+        segreduce,
+        stats,
+    )
 
     t0 = time.perf_counter()
     libs = _build.build(_build.SOURCES)
@@ -839,24 +1297,48 @@ def main() -> int:
           "k3_timings": k3_times, "nvidia_smi": smi,
           "k3_library": "index_add_ (sum), scatter_reduce_ amin (min)"})
 
+    # K4 at the batch shape (the largest batch of the three new paths),
+    # at the first ladder tier's 4096 rows and at 2^24 rows, for every
+    # key type and partition count; at 2^24 rows, Spark's partition
+    # counts and the first grace modulus
+    n4, k4_covered = check_k4(torch, murmur3, rng, [16384, 4096])
+    n4b, cov_b = check_k4(torch, murmur3, rng, [1 << 24], ns=(200, 1024, 32))
+    k4_covered |= cov_b
+    # timed at each path's shape (exchange_agg's g is nullable: `%` by
+    # zero is NULL), and at 2^24 rows
+    k4_times = [time_k4(torch, murmur3, rng, *a) for a in (
+        (16384, "int32", True, SHUFFLE_PARTITIONS),
+        (16384, "int64", False, SHUFFLE_PARTITIONS),
+        (16384, "int32", False, 32),
+        (1 << 24, "int32", False, SHUFFLE_PARTITIONS),
+        (1 << 24, "int64", False, SHUFFLE_PARTITIONS))]
+    emit({"phase": "kernels", "k4_cases": n4 + n4b, "k4_max_abs_err": 0,
+          "k4_tolerance": "partition ids equal, bit for bit",
+          "k4_timings": k4_times, "nvidia_smi": smi,
+          "k4_library": "none: no PyTorch call computes Spark's murmur3"})
+
     # 4. the paths, noting the shape of every kernel launch
     kernels = {"masked_stats": stats, "compact_perm": compact,
-               "segment_reduce": segreduce}
+               "segment_reduce": segreduce, "murmur3": murmur3}
     with launch_shapes(kernels) as seen:
         res = path_phase(torch, args.rows, args.seed, kernels)
         res.update(grouped_phase(torch, args.grouped_rows, args.seed,
                                  kernels))
+        res.update(exchange_phase(torch, args.rows, args.seed, kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check
     new = {"masked_stats": sorted(seen["masked_stats"] - set(sizes)),
            "compact_perm": sorted(seen["compact_perm"] - set(k2_sizes)),
-           "segment_reduce": sorted(seen["segment_reduce"] - set(k3_shapes))}
+           "segment_reduce": sorted(seen["segment_reduce"] - set(k3_shapes)),
+           "murmur3": sorted(seen["murmur3"] - k4_covered)}
     extra = {"masked_stats": check_k1(torch, stats, rng, new["masked_stats"]),
              "compact_perm": check_k2(torch, compact, rng,
                                       new["compact_perm"]),
              "segment_reduce": check_k3(torch, segreduce, rng,
-                                        new["segment_reduce"])}
+                                        new["segment_reduce"]),
+             "murmur3": (check_k4_at(torch, murmur3, rng, new["murmur3"]),
+                         0)}
     k1_err = max(k1_err, extra["masked_stats"][1])
     k2_err = max(k2_err, extra["compact_perm"][1])
     k3_err = max(k3_err, extra["segment_reduce"][1])
@@ -865,12 +1347,15 @@ def main() -> int:
           "checked_here": new,
           "cases": {name: v[0] for name, v in extra.items()},
           "max_abs_err": {"masked_stats": k1_err, "compact_perm": k2_err,
-                          "segment_reduce": k3_err}})
+                          "segment_reduce": k3_err, "murmur3": 0}})
 
     # summary: timings at the main path's batch shape, 16384 rows
     # (K1, K2) and at the grouped task's shape, float64 sums (K3)
     main_t = dict(timings[0])
     main_t["segment_reduce"] = k3_times[0]["sum_float64"]
+    # K4 at exchange_agg's map-side shape: 16,384 nullable int32 keys,
+    # 200 partitions
+    main_t["murmur3"] = k4_times[0]
     summary = []
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
@@ -880,6 +1365,8 @@ def main() -> int:
         ("segment_reduce", "blaze_tpu_torch/csrc/segreduce.cu",
          "blaze_tpu/ops/kernels/segreduce_pallas.py:127", "grouped",
          k3_err),
+        ("murmur3", "blaze_tpu_torch/csrc/murmur3.cu",
+         "blaze_tpu/ops/kernels/murmur3_pallas.py:104", "exchange_agg", 0),
     ):
         t = main_t[name]
         summary.append({

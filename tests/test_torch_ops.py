@@ -256,15 +256,21 @@ def test_out_of_slice_aggregates_raise(schema, keys, aggs, match):
 
 
 def test_keyed_input_over_materialize_limit_raises():
-    """A keyed COMPLETE input over max_materialize_rows needs the JAX
-    package's grace aggregation (exchange tier, ROADMAP item 6): the
-    port raises instead of giving a partial result. The keyless
-    aggregate folds per-batch states, as before."""
+    """A keyed COMPLETE input over max_materialize_rows no longer raises
+    (it did until the exchange tier, ROADMAP item 6, was ported): it
+    takes grace aggregation, whose groups equal the in-memory
+    aggregate's (tests/test_torch_exchange.py holds grace against the
+    JAX package)."""
     pscan, _ = _scans()
     keyed = HashAggregateExec(pscan, [(Col("a"), "a")],
                               [(AggExpr(AggFn.COUNT_STAR, None), "n")],
                               AggMode.COMPLETE)
     ctx = ExecContext(config=EngineConfig(device="cpu",
                                           max_materialize_rows=1500))
-    with pytest.raises(Exception, match="item 6"):
-        run_plan(keyed, ctx)
+    got = run_plan(keyed, ctx)
+    assert ctx.metrics.counters["external_agg_buckets"] == 32
+    whole = run_plan(keyed, ExecContext(device="cpu"))
+    order = [("a", "ascending")]
+    assert_arrow_equal(got.sort_by(order), whole.sort_by(order))
+    assert sum(got.column("n").to_pylist()) == sum(
+        int(b.live_mask().sum()) for b in pscan.partitions[0])
