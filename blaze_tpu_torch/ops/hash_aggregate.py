@@ -207,10 +207,11 @@ class _Scalar(_Reductions):
 
 
 class _SegOps(_Reductions):
-    """Keyed: K3 over the raw table-slot domain; the (domain,)-sized
-    results are gathered at the occupied slots (`_finish`). Dead rows
-    keep arbitrary in-range slots: every reduction masks them to its
-    neutral element first."""
+    """Keyed: K3 over the raw table-slot domain, taken at the occupied
+    slots in the same call. Each reduction hands K3 the column in its
+    own dtype and its `contrib` mask: K3 widens in registers and skips
+    masked-out rows, so dead rows (which keep arbitrary in-range slots)
+    contribute nothing and no masked, widened copy is made first."""
 
     def __init__(self, gid: torch.Tensor, domain: int,
                  compact_slots: torch.Tensor):
@@ -219,31 +220,21 @@ class _SegOps(_Reductions):
         self.domain = domain
         self.compact_slots = compact_slots
 
-    def _finish(self, r):
-        return torch.index_select(r, 0, self.compact_slots)
-
     def _count(self, mask):
-        return self.sum(mask.to(torch.int64), mask)
+        # a bool column sums to its count of true rows, in int64
+        return segreduce.segment_sum(self.gid, mask, self.domain,
+                                     at=self.compact_slots)
 
     def sum(self, v, contrib):
         # sums accumulate in the state type, float64 or int64
-        v = v.to(torch.float64 if v.dtype.is_floating_point
-                 else torch.int64)
-        acc = torch.where(contrib, v, torch.zeros((), dtype=v.dtype,
-                                                  device=v.device))
-        return self._finish(segreduce.segment_sum(self.gid, acc,
-                                                  self.domain))
+        return segreduce.segment_sum(self.gid, v, self.domain, contrib,
+                                     self.compact_slots)
 
     def extreme(self, is_min: bool, v, contrib):
-        src = v.dtype
-        if src in (torch.bool, torch.int8, torch.int16):
-            v = v.to(torch.int32)
-        op = "min" if is_min else "max"
-        acc = torch.where(contrib, v, torch.full(
-            (), segreduce.neutral(op, v.dtype), dtype=v.dtype,
-            device=v.device))
         red = segreduce.segment_min if is_min else segreduce.segment_max
-        return self._finish(red(self.gid, acc, self.domain)).to(src)
+        # bool, int8 and int16 come back widened to int32
+        return red(self.gid, v, self.domain, contrib,
+                   self.compact_slots).to(v.dtype)
 
 
 class HashAggregateExec(PhysicalOp):

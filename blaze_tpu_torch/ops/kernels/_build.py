@@ -33,6 +33,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sms: Dict[int, int] = {}
 
 
 def nvcc() -> str:
@@ -97,6 +98,25 @@ def load(name: str) -> ctypes.CDLL:
             (path,) = build([name])
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def stream(dev) -> int:
+    """The raw handle of the device's current stream (a kernel launches
+    on it); cheaper per call than a torch.cuda.Stream object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def sm_count(dev) -> int:
+    """The device's SM count, read once per device."""
+    sms = _sms.get(dev.index)
+    if sms is None:
+        import torch
+
+        sms = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
 
 
 def check(err: int, what: str) -> None:

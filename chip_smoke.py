@@ -5,6 +5,8 @@
                                      # (q6, select, exchange_agg, grace),
                                      # 4,194,304 (grouped, repartition)
     python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
+    python3 chip_smoke.py --compare DIR   # K2 and K3 of another checkout
+                                          # against this one, timed
 
 Phases, one JSON line each:
 
@@ -16,14 +18,25 @@ Phases, one JSON line each:
    (segmented reduce) on the card against their plain PyTorch versions
    at the main paths' shapes, with NaN, +/-inf, all-masked, all-kept,
    out-of-range segment ids, empty segments and int64-wrap inputs from
-   a seeded numpy generator; K3 also at both ends of its domain (1024
-   and 2^23 segments). Then K4 (Spark murmur3 partition ids), bit for
-   bit: every fixed-width key type, nullable and not, one, three and
-   nine key columns, int extremes, +/-0.0, NaNs of several payloads,
-   subnormals and +/-inf, for n in 1, 2, 200, 1024 and the grace moduli
-   32, 128, 512, at 4096, 16,384 and 2^24 rows. Then CUDA-event timings
-   beside each kernel's bound and, where there is one, the PyTorch
-   library call.
+   a seeded numpy generator. K2 also on uint8 masks holding 2..255, on
+   masks that are views at storage offsets 1..15, with kept runs that
+   span tiles and one kept row at each end, for n in 1, 15, 17, both
+   tiles (4096 and 8192) and their neighbours, the last size without
+   look-back (65,536) and the first with it, and 2^24 + 3; the look-back
+   kernel also at grids of fewer and more blocks than tiles; all against
+   numpy's flatnonzero. K3 for every operation and source dtype (bool,
+   int8-64, float32/64), with and without a contrib mask, whole and at a
+   slot list, in both variants (shared, global) the domain can run, at
+   the grouped, PARTIAL and FINAL shapes, a 256 KiB domain past one
+   block's copy and both domain ends (1024 and 2^23 segments). Then K4 (Spark murmur3
+   partition ids), bit for bit: every fixed-width key type, nullable
+   and not, one, three and nine key columns, int extremes, +/-0.0, NaNs
+   of several payloads, subnormals and +/-inf, for n in 1, 2, 200, 1024
+   and the grace moduli 32, 128, 512, at 4096, 16,384 and 2^24 rows.
+   Then CUDA-event timings beside each kernel's bound and the PyTorch
+   call for the same function (for K3 with its mask-and-widen pass),
+   and the device operations one K2 or K3 call puts on the card
+   (torch.profiler).
 4. path: a zstd parquet file of `--rows` rows (TPC-DS store_sales-shaped
    item/qty/price, as in bench.py) goes through the port's
    `execute_task` on cuda twice: the q6 task (filter, project, keyless
@@ -35,8 +48,8 @@ Phases, one JSON line each:
    through its map-side form (a PARTIAL task, then FINAL over its state
    batches), both against bench.py's numpy bincount/reduceat oracle in
    float64. Each kernel's launch count is zeroed before the task it
-   serves and must be > 0 after it. Each task except the two-phase one
-   then runs once more under torch.profiler for its device busy time.
+   serves and must be > 0 after it. Each task then runs once more under
+   torch.profiler for its device busy time.
    Then the exchange, over the same `--rows` cut into 4 parquet splits:
    - exchange_agg: Spark's two-stage plan of bench.py's grouped_agg with
      spark.sql.shuffle.partitions 200: 4 map TaskDefinitions (scan ->
@@ -54,16 +67,26 @@ Phases, one JSON line each:
    runs once more under torch.profiler. The shape of every kernel
    launch on these paths is noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
-   phase 3, at every launch shape of phase 4 that phase 3 did not check.
+   phase 3, at every launch shape of phase 4 that phase 3 did not check;
+   then K1, K2 and K3 timed at the most launched of those shapes (K2 at
+   the hash-table sizes).
 
 The line before the last is the per-kernel JSON summary; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 This script imports neither jax nor the JAX package.
+
+--compare DIR times, in the order DIR, this checkout, this checkout,
+DIR (one process each), the grouped aggregate's keyed reductions as
+`_SegOps` makes them (the masked SUM of a float32 column, the count of a
+mask and the masked MIN, each taken at the occupied slots: K3 and
+whatever the checkout does around it) at the grouped, PARTIAL and FINAL
+shapes, and K2 at the path sizes: ms and device µs a call.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -205,115 +228,209 @@ def check_k1(torch, stats, rng, sizes):
     return checked, max_err
 
 
-def check_k2(torch, compact, rng, sizes):
+# K2's rows per look-back tile, per tile of the kernel without
+# look-back, and the most rows of that kernel (blaze_tpu_torch/csrc/
+# compact.cu kTile, kPass, kSmallRows)
+K2_TILE = 8192
+K2_SMALL_TILE = 4096
+K2_SMALL_ROWS = 65536
+# K2 sizes: the select batch, 2^24 rows, odd small sizes, both tiles and
+# their neighbours, both sides of the look-back threshold, and 2^24 + 3
+# (a ragged last tile)
+K2_SIZES = [16384, 1 << 24, 256, 1000, 32768, 1, 15, 17, K2_TILE - 1,
+            K2_TILE, K2_TILE + 1, K2_SMALL_TILE - 1, K2_SMALL_TILE, 4097,
+            K2_SMALL_ROWS, K2_SMALL_ROWS + 1, (1 << 24) + 3]
+# the look-back kernel at forced grids: fewer blocks than tiles (a block
+# claims many) and more (most claim none and wait)
+K2_GRID_SIZES = [K2_SMALL_ROWS + 1, 1 << 18]
+K2_GRIDS = [1, 3, 1000]
+
+
+def k2_masks(rng, n: int):
+    """(name, host mask) pairs: random densities, all and none kept, a
+    kept tail, one kept row at each end, kept runs that span tiles, and
+    a uint8 mask whose kept bytes hold 2..255."""
+    i = np.arange(n)
+    ends = np.zeros(n, bool)
+    ends[[0, n - 1]] = True
+    u8 = np.where(rng.random(n) < 0.5,
+                  rng.integers(2, 256, n), 0).astype(np.uint8)
+    return [
+        ("p30", rng.random(n) < 0.3),
+        ("p50", rng.random(n) < 0.5),
+        ("all_kept", np.ones(n, bool)),
+        ("none_kept", np.zeros(n, bool)),
+        ("tail_only", i >= n - 7),
+        ("ends_only", ends),
+        # runs of one tile, half a tile off the tile grid, and short runs
+        ("runs_across_tiles", (((i + K2_TILE // 2) // K2_TILE) % 2 == 0)
+         | ((i // 37) % 3 == 0) & (i >= 3 * K2_TILE)),
+        ("uint8_2_255", u8),
+    ]
+
+
+def k2_view(torch, mask_np, offset: int):
+    """The mask on the card as a view starting `offset` bytes into its
+    storage (a sliced batch column starts at any byte)."""
+    n = len(mask_np)
+    store = torch.zeros(n + 16, dtype=torch.from_numpy(mask_np).dtype,
+                        device="cuda")
+    store[offset:offset + n] = torch.from_numpy(mask_np).cuda()
+    view = store[offset:offset + n]
+    assert view.storage_offset() == offset
+    return view
+
+
+def check_k2(torch, compact, rng, sizes, all_offsets=(), grids=(None,)):
+    """K2 against its plain version bit for bit and against numpy's
+    flatnonzero, at each size for every mask of k2_masks; the cases of a
+    size take storage offsets 0, 1, ... 15 in turn, and the sizes in
+    `all_offsets` take every offset with the uint8 mask. Each case runs
+    at each grid of `grids` (None: the wrapper's)."""
     checked = 0
-    max_err = 0
-    for n in sizes:
-        for name, keep_np in (
-            ("p30", rng.random(n) < 0.3),
-            ("p50", rng.random(n) < 0.5),
-            ("all_kept", np.ones(n, bool)),
-            ("none_kept", np.zeros(n, bool)),
-            ("tail_only", np.arange(n) >= n - 7),
-        ):
-            keep = torch.from_numpy(keep_np).cuda()
-            src, n_live = compact.compact_perm(keep)
-            esrc, en = compact.compact_perm_plain(keep)
-            torch.cuda.synchronize()
-            exp = np.zeros(n, np.int32)
-            idx = np.flatnonzero(keep_np).astype(np.int32)
-            exp[: len(idx)] = idx
-            max_err = max(max_err, int(
-                (src.long() - esrc.long()).abs().max()) if n else 0)
-            if not (torch.equal(src, esrc) and int(n_live) == int(en)
-                    and np.array_equal(src.cpu().numpy(), exp)
-                    and int(n_live) == len(idx)):
-                raise AssertionError(
-                    f"K2 compact_perm {name} n={n}: n_live "
-                    f"{int(n_live)} vs {len(idx)}")
-            checked += 1
-    return checked, max_err
+    offset = 0
+    cases = [(n, name, m) for n in sizes for name, m in k2_masks(rng, n)]
+    for n in all_offsets:
+        u8 = dict(k2_masks(rng, n))["uint8_2_255"]
+        cases += [(n, "uint8_2_255", u8)] * 16
+    cases = [(n, name, m, g) for n, name, m in cases for g in grids]
+    for n, name, keep_np, grid in cases:
+        keep = k2_view(torch, keep_np, offset)
+        src, n_live = compact._launch(keep, grid)
+        esrc, en = compact.compact_perm_plain(keep)
+        torch.cuda.synchronize()
+        exp = np.zeros(n, np.int32)
+        idx = np.flatnonzero(keep_np).astype(np.int32)
+        exp[: len(idx)] = idx
+        if not (torch.equal(src, esrc) and int(n_live) == int(en)
+                and np.array_equal(src.cpu().numpy(), exp)
+                and int(n_live) == len(idx)):
+            raise AssertionError(
+                f"K2 compact_perm {name} n={n} offset={offset} "
+                f"grid={grid}: n_live "
+                f"{int(n_live)} vs {len(idx)}, or the permutation differs")
+        checked += 1
+        offset = (offset + 1) % 16
+    return checked, 0
 
 
-def k3_inputs(rng, n: int, k: int, op: str, dtype, case: str):
-    """(gid, values) host arrays for one K3 case: "random" (every gid
-    in range), "edges" (gids out of range, the odd segments empty, a
-    NaN in segment 4, +inf with -inf in segment 6, and segments 8, 10
-    and 12 holding only zeros: +0/-0/+0, -0/+0 and -0 alone), "wrap"
-    (int64 sums that overflow)."""
-    gid = rng.integers(0, k, n).astype(np.int32)
-    if np.issubdtype(dtype, np.floating):
-        v = ((rng.random(n) - 0.5) * 1e3).astype(dtype)
-    elif op == "sum":
-        v = rng.integers(-2 ** 40, 2 ** 40, n).astype(dtype)
+# source dtypes of K3's column, by operation: every fixed-width column
+K3_SRC = (np.bool_, np.int8, np.int16, np.int32, np.int64, np.float32,
+          np.float64)
+
+
+def k3_base(rng, n: int, k: int):
+    """Host arrays one K3 shape's cases share: in-range gids, a 70% mask,
+    uniform floats and full-range int64 bits."""
+    return {"gid": rng.integers(0, k, n).astype(np.int32),
+            "contrib": rng.random(n) < 0.7,
+            "f": rng.random(n), "i": rng.integers(
+                -2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)}
+
+
+def k3_inputs(base, k: int, op: str, dtype, case: str):
+    """(gid, values, contrib) host arrays for one K3 case: "random"
+    (every gid in range), "edges" (gids out of range, the odd segments
+    empty; for floats a NaN in segment 4, +inf with -inf in segment 6,
+    segments 8, 10 and 12 holding only zeros: +0/-0/+0, -0/+0 and -0
+    alone, and a masked-out NaN in segment 2), "wrap" (int64 sums that
+    overflow)."""
+    n = len(base["gid"])
+    gid = base["gid"].copy()
+    contrib = base["contrib"].copy()
+    if dtype == np.bool_:
+        v = base["f"] < 0.5
+    elif np.issubdtype(dtype, np.floating):
+        v = ((base["f"] - 0.5) * 1e3).astype(dtype)
+    elif op == "sum" and dtype == np.int64:
+        v = base["i"] >> 23  # +-2^40: sums that do not wrap
     else:
-        info = np.iinfo(dtype)
-        v = rng.integers(info.min, info.max, n, dtype=dtype)
+        v = base["i"].astype(dtype)  # the low bits: the dtype's range
     if case == "edges":
         gid = (gid // 2) * 2
-        out = rng.random(n) < 0.05
-        gid[out] = rng.choice(np.array([-1, k, k + 7, 2 ** 31 - 1],
-                                       np.int32), int(out.sum()))
-        if np.issubdtype(dtype, np.floating):
-            gid[(gid >= 8) & (gid <= 12)] = 14
-            gid[:10] = [4, 4, 6, 6, 8, 8, 8, 10, 10, 12]
-            v[:10] = [np.nan, 1.0, np.inf, -np.inf,
-                      0.0, -0.0, 0.0, -0.0, 0.0, -0.0]
+        out = base["f"] < 0.05
+        gid[out] = np.array([-1, k, k + 7, 2 ** 31 - 1],
+                            np.int32)[base["i"][out] & 3]
+        if np.issubdtype(dtype, np.floating) and n >= 11:
+            gid[(gid >= 2) & (gid <= 12)] = 14
+            gid[:11] = [4, 4, 6, 6, 8, 8, 8, 10, 10, 12, 2]
+            v[:11] = [np.nan, 1.0, np.inf, -np.inf,
+                      0.0, -0.0, 0.0, -0.0, 0.0, -0.0, np.nan]
+            contrib[:11] = [True] * 10 + [False]
     elif case == "wrap":
-        v = rng.integers(2 ** 62, 2 ** 63 - 1, n, dtype=np.int64)
-    return gid, v
+        v = (base["i"] | (1 << 62)) & ((1 << 63) - 1)  # in [2^62, 2^63)
+    return gid, v, contrib
 
 
-K3_DTYPES = {"sum": (np.float64, np.int64),
-             "min": (np.float32, np.float64, np.int32, np.int64),
-             "max": (np.float32, np.float64, np.int32, np.int64)}
+def k3_variants(segreduce, op: str, dtype, k: int):
+    """Every variant a domain of k slots can run: global always, shared
+    where a block's copy fits."""
+    if k * segreduce.key_size(op, dtype) <= segreduce._SHARED_MAX_BYTES:
+        return ["global", "shared"]
+    return ["global"]
 
 
-def check_k3(torch, segreduce, rng, shapes):
-    """Every K3 operation and dtype against its plain version at each
-    (rows, segments) shape: float64 sums within 1e-12 * sum|x| per
-    segment, everything else bit for bit (NaN equal to NaN). Where a
-    block's shared-memory copy of the segments fits, the variant the
-    wrapper does not pick is held to the same."""
+def check_k3(torch, segreduce, rng, shapes, variants: bool = True):
+    """Every K3 operation and source dtype, with and without a contrib
+    mask, against its plain version at each (rows, segments) shape, and
+    at a random slot list (`at`) as the grouped aggregate calls it:
+    float64 sums within 1e-12 * sum|x| per segment, everything else bit
+    for bit (NaN equal to NaN). With `variants`, every variant the domain
+    can run is held to the same, not only the one the wrapper picks."""
     checked = 0
     max_err = 0.0
     for n, k in shapes:
-        for op, dtypes in K3_DTYPES.items():
+        base = k3_base(rng, n, k)
+        at_np = rng.integers(0, k, min(k, 4096)).astype(np.int32)
+        at = torch.from_numpy(at_np).cuda()
+        at64 = at.long()
+        for op in ("sum", "min", "max"):
             kern = getattr(segreduce, f"segment_{op}")
             plain = getattr(segreduce, f"segment_{op}_plain")
-            for dt in dtypes:
+            for dt in K3_SRC:
                 cases = ["random", "edges"]
                 if op == "sum" and dt == np.int64:
                     cases.append("wrap")
                 for case in cases:
-                    g_np, v_np = k3_inputs(rng, n, k, op, dt, case)
+                    g_np, v_np, c_np = k3_inputs(base, k, op, dt, case)
                     gid = torch.from_numpy(g_np).cuda()
                     v = torch.from_numpy(v_np).cuda()
-                    exp = plain(gid, v, k)
-                    mag = plain(gid, v.abs(), k) if op == "sum" else None
-                    runs = [("picked", kern(gid, v, k))]
-                    size = v.element_size()
-                    if k * size <= segreduce._SHARED_MAX_BYTES:
-                        other = not segreduce.uses_shared(n, k, size)
-                        runs.append(("other variant", segreduce._launch(
-                            op, gid, v, k, other)))
-                    torch.cuda.synchronize()
-                    for variant, got in runs:
-                        if op == "sum" and v.dtype.is_floating_point:
-                            fin = torch.isfinite(exp)
-                            err = (got - exp).abs()[fin]
-                            e = float(err.max()) if err.numel() else 0.0
-                            max_err = max(max_err, e)
-                            ok = bool((err <= 1e-12 * mag[fin]).all()) \
-                                and same_value(torch, got[~fin], exp[~fin])
-                        else:
-                            ok = same_value(torch, got, exp)
-                        if not ok:
-                            raise AssertionError(
-                                f"K3 segment_{op} {np.dtype(dt).name} "
-                                f"{case} rows={n} segments={k} ({variant})"
-                                ": kernel differs from plain")
-                        checked += 1
+                    for masked in (False, True):
+                        c = torch.from_numpy(c_np).cuda() if masked else None
+                        exp = plain(gid, v, k, c)
+                        mag = plain(gid, v.abs(), k, c) if (
+                            op == "sum" and v.dtype.is_floating_point) \
+                            else None
+                        runs = [("picked", kern(gid, v, k, c)),
+                                ("picked at", kern(gid, v, k, c, at))]
+                        if variants:
+                            runs += [(kind, segreduce._launch(
+                                op, gid, v, k, c, None, kind))
+                                for kind in k3_variants(
+                                    segreduce, op, v.dtype, k)]
+                        torch.cuda.synchronize()
+                        for variant, got in runs:
+                            want, m = exp, mag
+                            if variant == "picked at":
+                                want = exp[at64]
+                                m = None if mag is None else mag[at64]
+                            if op == "sum" and v.dtype.is_floating_point:
+                                fin = torch.isfinite(want)
+                                err = (got - want).abs()[fin]
+                                e = float(err.max()) if err.numel() else 0.0
+                                max_err = max(max_err, e)
+                                ok = bool((err <= 1e-12 * m[fin]).all()) \
+                                    and same_value(torch, got[~fin],
+                                                   want[~fin])
+                            else:
+                                ok = same_value(torch, got, want)
+                            if not ok:
+                                raise AssertionError(
+                                    f"K3 segment_{op} {np.dtype(dt).name} "
+                                    f"{case} masked={masked} rows={n} "
+                                    f"segments={k} ({variant}): kernel "
+                                    "differs from plain")
+                            checked += 1
     return checked, max_err
 
 
@@ -327,71 +444,72 @@ def k3_repeatable(torch, segreduce, rng, n: int, k: int) -> bool:
     return torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
-def time_k3(torch, segreduce, rng, n: int, k: int):
-    """K3 at one (rows, segments) shape for the grouped task's three
-    reductions: float64 sum (SUM, AVG), int64 sum (the counts) and
-    float32 min (MIN, MAX). Beside the kernel: its plain version, one
-    PyTorch call on the same in-range gids (index_add_,
-    scatter_reduce_), both kernel variants where a block's shared-memory
-    copy of the segments fits, and the caller's pass that masks and
-    widens the column before K3 (_SegOps in ops/hash_aggregate.py)."""
+def time_k3(torch, segreduce, rng, n: int, k: int, variants: bool = True):
+    """K3 at one (rows, segments) shape for the grouped aggregate's three
+    kinds of reduction, each taking the column in its own dtype: the
+    masked float64 SUM of a float32 column (SUM, AVG), the count of a
+    bool mask (COUNT and the validity of every state), and the masked
+    float32 MIN (MIN, MAX, FIRST, LAST). Beside the kernel: its plain
+    version, the one PyTorch call for the same function with its
+    mask-and-widen pass (index_add_, scatter_reduce_ over torch.where),
+    and with `variants` every variant the domain can run, in ms and in
+    device µs a call (the variant pick's evidence)."""
     gid = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).cuda()
+    dev = gid.device
     gid64 = gid.long()
     contrib = torch.from_numpy(rng.random(n) < 0.9).cuda()
     price = torch.from_numpy((rng.random(n) * 100).astype(np.float32)).cuda()
+    inf = float("inf")
     out = {"rows": n, "segments": k}
-    for op, dt in (("sum", np.float64), ("sum", np.int64),
-                   ("min", np.float32)):
-        if dt == np.int64:
-            v = contrib.to(torch.int64)
-
-            def prep():
-                m = contrib.to(torch.int64)
-                torch.where(contrib, m, torch.zeros((), dtype=m.dtype,
-                                                    device=m.device))
-        elif op == "sum":
-            v = price.to(torch.float64)
-
-            def prep():
-                torch.where(contrib, price.to(torch.float64), torch.zeros(
-                    (), dtype=torch.float64, device=price.device))
-        else:
-            v = price
-
-            def prep():
-                torch.where(contrib, price, torch.full(
-                    (), float("inf"), dtype=price.dtype,
-                    device=price.device))
+    for name, op, v, c, lib in (
+        ("sum_float32_masked", "sum", price, contrib,
+         lambda: torch.zeros(k, dtype=torch.float64, device=dev).index_add_(
+             0, gid64, torch.where(contrib, price.double(), 0.0))),
+        ("count_bool", "sum", contrib, None,
+         lambda: torch.zeros(k, dtype=torch.int64, device=dev).index_add_(
+             0, gid64, contrib.long())),
+        ("min_float32_masked", "min", price, contrib,
+         lambda: torch.full((k,), inf, device=dev).scatter_reduce_(
+             0, gid64, torch.where(contrib, price, inf), "amin",
+             include_self=True)),
+    ):
         kern = getattr(segreduce, f"segment_{op}")
         plain = getattr(segreduce, f"segment_{op}_plain")
-        if op == "sum":
-            def lib():
-                torch.zeros(k, dtype=v.dtype, device=v.device).index_add_(
-                    0, gid64, v)
-        else:
-            def lib():
-                torch.full((k,), float("inf"), dtype=v.dtype,
-                           device=v.device).scatter_reduce_(
-                    0, gid64, v, "amin", include_self=True)
-        # each row's gid and value read once, each segment written once;
-        # one add or compare per row
-        size = v.element_size()
-        nbytes = n * (4 + size) + k * size
+        keysize = segreduce.key_size(op, v.dtype)
+        # each row's gid, value and mask byte read once, each segment
+        # written once; one add or compare per row
+        nbytes = n * (4 + v.element_size() + (c is not None)) + k * keysize
         b_ms, b_by = bound(nbytes, n, CUDA_CORE_OPS_PER_S)
         row = {
-            "ms": cuda_ms(torch, lambda: kern(gid, v, k)),
-            "plain_ms": cuda_ms(torch, lambda: plain(gid, v, k)),
+            "ms": cuda_ms(torch, lambda: kern(gid, v, k, c)),
+            "plain_ms": cuda_ms(torch, lambda: plain(gid, v, k, c)),
             "library_ms": cuda_ms(torch, lib),
-            "caller_prep_ms": cuda_ms(torch, prep),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "variant": "shared" if segreduce.uses_shared(n, k, size)
-            else "global"}
-        if k * size <= segreduce._SHARED_MAX_BYTES:
-            for variant, flag in (("shared", True), ("global", False)):
-                row[f"{variant}_ms"] = cuda_ms(
-                    torch, lambda: segreduce._launch(op, gid, v, k, flag))
-        out[f"{op}_{np.dtype(dt).name}"] = row
+            "variant": segreduce.variant(n, k, op, v.dtype)}
+        if variants:
+            for kind in k3_variants(segreduce, op, v.dtype, k):
+                def call():
+                    return segreduce._launch(op, gid, v, k, c, None, kind)
+                row[f"{kind}_ms"] = cuda_ms(torch, call)
+                row[f"{kind}_device_us"] = device_ops(
+                    torch, call)["device_us_per_call"]
+        out[name] = row
     return out
+
+
+def time_k2(torch, compact, rng, n: int, p: float = 0.5):
+    """K2, its plain version and torch.nonzero on a bool mask of n rows
+    with a fraction p kept. Bound: the mask byte read and one 4-byte
+    index (kept row or 0 tail) written per row."""
+    keep = torch.from_numpy(rng.random(n) < p).cuda()
+    nbytes = n * (1 + 4) + 4
+    b_ms, b_by = bound(nbytes, 4 * n, CUDA_CORE_OPS_PER_S)
+    return {"rows": n, "kept": p,
+            "ms": cuda_ms(torch, lambda: compact.compact_perm(keep)),
+            "plain_ms": cuda_ms(torch,
+                                lambda: compact.compact_perm_plain(keep)),
+            "library_ms": cuda_ms(torch, lambda: torch.nonzero(keep)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
 def time_kernels(torch, stats, compact, rng, n: int):
@@ -399,27 +517,69 @@ def time_kernels(torch, stats, compact, rng, n: int):
     masks: the q6 path's dtypes)."""
     v = torch.from_numpy((rng.random(n) * 100).astype(np.float32)).cuda()
     m = torch.from_numpy(rng.random(n) < 0.5).cuda()
-    keep = m
     k1_ms = cuda_ms(torch, lambda: stats.masked_stats(v, m))
     k1_plain = cuda_ms(torch, lambda: stats.masked_stats_plain(v, m))
-    k2_ms = cuda_ms(torch, lambda: compact.compact_perm(keep))
-    k2_plain = cuda_ms(torch, lambda: compact.compact_perm_plain(keep))
-    k2_lib = cuda_ms(torch, lambda: torch.nonzero(keep))
     # K1 moves each value (4 B) and mask byte once and does ~4 operations
-    # a row; K2 reads the mask byte and writes a 4 B index per row.
+    # a row
     k1_bytes = n * (4 + 1) + 8 + 4 + 4 + 8
     k1_bound, k1_by = bound(k1_bytes, 4 * n, CUDA_CORE_OPS_PER_S)
-    k2_bytes = n * (1 + 4) + 4
-    k2_bound, k2_by = bound(k2_bytes, 4 * n, CUDA_CORE_OPS_PER_S)
     return {
         "rows": n,
         "masked_stats": {"ms": k1_ms, "plain_ms": k1_plain,
                          "bound_ms": k1_bound, "bound_by": k1_by,
                          "bytes": k1_bytes, "library_ms": None},
-        "compact_perm": {"ms": k2_ms, "plain_ms": k2_plain,
-                         "bound_ms": k2_bound, "bound_by": k2_by,
-                         "bytes": k2_bytes, "library_ms": k2_lib},
+        "compact_perm": time_k2(torch, compact, rng, n),
     }
+
+
+def device_ops(torch, fn, calls: int = 20):
+    """What one call of fn puts on the card, from torch.profiler over
+    `calls` calls after a warm-up: each device operation (kernel,
+    memset, copy) by name with its count per call, and device µs per
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return {"ops_per_call": "not measured",
+                "device_us_per_call": "not measured"}
+    return {"ops_per_call": sum(e.count for e in ev) / calls,
+            "by_name": {e.key[:60]: e.count / calls for e in ev},
+            "device_us_per_call": sum(e.self_device_time_total
+                                      for e in ev) / calls}
+
+
+def profile_kernel_calls(torch, compact, segreduce, rng):
+    """Device operations per call of K2 (the select batch, a reduce
+    task's table, 2^24 rows) and K3 as the grouped aggregate calls it
+    (the column, its mask and the occupied slots) at the grouped,
+    PARTIAL and FINAL shapes."""
+    out = {}
+    for n in (16384, 1 << 18, 1 << 24):
+        keep = torch.from_numpy(rng.random(n) < 0.5).cuda()
+        out[f"compact_perm_{n}"] = device_ops(
+            torch, lambda: compact.compact_perm(keep))
+    for label, n, k, m in (("grouped", 1 << 22, 16384, 4096),
+                           ("partial", 16384, 32768, 16384),
+                           ("final", 1032192, 16384, 4096)):
+        gid = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).cuda()
+        c = torch.from_numpy(rng.random(n) < 0.9).cuda()
+        price = torch.from_numpy(
+            (rng.random(n) * 100).astype(np.float32)).cuda()
+        at = torch.from_numpy(rng.permutation(k)[:m].astype(np.int32)).cuda()
+        out[f"segment_sum_{label}"] = device_ops(
+            torch, lambda: segreduce.segment_sum(gid, price, k, c, at))
+        out[f"segment_min_{label}"] = device_ops(
+            torch, lambda: segreduce.segment_min(gid, price, k, c, at))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -635,7 +795,8 @@ def q6_plan(scan, aggregate: bool):
 
 
 # the shape of a launch, from the arguments of each wrapper module's
-# `_launch`: rows for K1 and K2, (rows, segments) for K3
+# `_launch`: rows for K1 and K2, (rows, segments) for K3 (every case of
+# check_k3 runs at each)
 LAUNCH_SHAPE = {
     "masked_stats": lambda values, mask: values.numel(),
     "compact_perm": lambda keep: keep.numel(),
@@ -648,13 +809,13 @@ LAUNCH_SHAPE = {
 @contextlib.contextmanager
 def launch_shapes(kernels):
     """Wrap each kernel module's `_launch` (which counts the launch) to
-    note the shape of every launch; yields {name: set of shapes}."""
-    seen = {name: set() for name in kernels}
+    note the shape of every launch; yields {name: Counter of shapes}."""
+    seen = {name: collections.Counter() for name in kernels}
     saved = {name: mod._launch for name, mod in kernels.items()}
 
     def noting(name, launch):
         def wrapped(*args):
-            seen[name].add(LAUNCH_SHAPE[name](*args))
+            seen[name][LAUNCH_SHAPE[name](*args)] += 1
             return launch(*args)
         return wrapped
 
@@ -724,10 +885,9 @@ def profile_run(torch, fn, task: str, wall: float):
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in dev if any(
-        k in e.key for k in ("stats_partial", "stats_final", "block_counts",
-                             "scan_counts", "scatter_rows", "seg_init",
-                             "seg_shared", "seg_global", "seg_decode",
-                             "partition_ids"))]
+        k in e.key for k in ("stats_partial", "stats_final",
+                             "compact_small", "compact_lookback", "seg_shared",
+                             "seg_global", "seg_decode", "partition_ids"))]
     emit({"phase": "profile", "task": task,
           "device_busy_ms": busy_ms if dev else "not measured",
           "device_calls": sum(e.count for e in dev),
@@ -949,8 +1109,9 @@ def grouped_phase(torch, rows: int, seed: int, kernels):
         (states, table), wall, launches, transfers = run_counted(
             torch, two_phase, kernels)
         err = check_grouped(table, exp, "grouped_partial")
-        if launches["segment_reduce"] <= 0:
-            raise AssertionError("grouped_partial did not launch K3")
+        for name in ("segment_reduce", "compact_perm"):
+            if launches[name] <= 0:
+                raise AssertionError(f"grouped_partial did not launch {name}")
         results["grouped_partial"] = {"launches": launches, "wall_s": wall}
         emit({"phase": "path", "task": "grouped_partial", "rows": rows,
               "state_batches": len(states),
@@ -958,6 +1119,7 @@ def grouped_phase(torch, rows: int, seed: int, kernels):
               "groups": table.num_rows, "wall_s": wall,
               "rows_per_s": rows / wall, "sum_max_rel_err": err,
               "launches": launches, "transfers": transfers})
+        profile_run(torch, two_phase, "grouped_partial", wall)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return results
@@ -1198,6 +1360,9 @@ def exchange_phase(torch, rows: int, seed: int, kernels):
                                                 "item"), "grace", "item")
         if launches["murmur3"] <= 0 or gc.get("external_agg_buckets", 0) < 2:
             raise AssertionError("grace did not bucket through murmur3")
+        for name in ("segment_reduce", "compact_perm"):
+            if launches[name] <= 0:
+                raise AssertionError(f"grace did not launch {name}")
         results["grace"] = {"launches": launches, "wall_s": wall}
         path_line("grace", rows, wall, launches, transfers,
                   groups=table.num_rows, sum_max_rel_err=err,
@@ -1211,6 +1376,40 @@ def exchange_phase(torch, rows: int, seed: int, kernels):
     return results
 
 
+def time_tree(torch, tree: str):
+    """The --compare timings of the checkout `tree`, whose
+    blaze_tpu_torch this process imports."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from blaze_tpu_torch.ops.hash_aggregate import _SegOps
+    from blaze_tpu_torch.ops.kernels import _build, compact
+
+    _build.build(["compact", "segreduce"])
+    rng = np.random.default_rng(7)
+    out = {"phase": "compare", "tree": tree}
+
+    def timed(fn):
+        return {"ms": cuda_ms(torch, fn),
+                "device_us": device_ops(torch, fn)["device_us_per_call"]}
+
+    # (rows, slots, occupied slots): the grouped, PARTIAL and FINAL shapes
+    for n, k, m in ((1 << 22, 16384, 4096), (16384, 32768, 16384),
+                    (1032192, 16384, 4096)):
+        gid = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).cuda()
+        c = torch.from_numpy(rng.random(n) < 0.9).cuda()
+        price = torch.from_numpy(
+            (rng.random(n) * 100).astype(np.float32)).cuda()
+        at = torch.from_numpy(rng.permutation(k)[:m].astype(np.int32)).cuda()
+        red = _SegOps(gid, k, at)
+        out[f"{n}x{k}"] = {
+            "sum_float32_masked": timed(lambda: red.sum(price, c)),
+            "count_bool": timed(lambda: red._count(c)),
+            "min_float32_masked": timed(lambda: red.extreme(True, price, c))}
+    for n in (16384, 32768, 1 << 16, 1 << 18, 1 << 24):
+        keep = torch.from_numpy(rng.random(n) < 0.5).cuda()
+        out[f"compact_perm_{n}"] = timed(lambda: compact.compact_perm(keep))
+    emit(out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
@@ -1218,6 +1417,10 @@ def main() -> int:
     ap.add_argument("--grouped-rows", type=int, default=1 << 22,
                     help="parquet rows of the grouped tasks")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--compare", metavar="DIR",
+                    help="another checkout of the repository: time its K2 "
+                         "and keyed reductions against this one's")
+    ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1230,10 +1433,20 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(blaze_tpu_torch/ is missing)", file=sys.stderr)
         return 2
+    if args.tree:
+        time_tree(torch, args.tree)
+        return 0
+    smi = smi_line()
+    if args.compare:
+        print(smi, flush=True)
+        for tree in (args.compare, REPO, REPO, args.compare):
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--tree", tree], check=True)
+        print(smi_line(), flush=True)
+        return 0
     sys.path.insert(0, REPO)
 
     # 1. device
-    smi = smi_line()
     print(smi, flush=True)
     imports = {}
     for mod in ("pyarrow", "google.protobuf"):
@@ -1266,36 +1479,47 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     sizes = [16384, 1 << 24]
     n1, k1_err = check_k1(torch, stats, rng, sizes)
-    k2_sizes = sizes + [256, 1000, 32768]
-    n2, k2_err = check_k2(torch, compact, rng, k2_sizes)
+    n2, k2_err = check_k2(torch, compact, rng, K2_SIZES,
+                          all_offsets=(4097, K2_TILE + 1))
+    n2 += check_k2(torch, compact, rng, K2_GRID_SIZES, grids=K2_GRIDS)[0]
     timings = [time_kernels(torch, stats, compact, rng, n) for n in sizes]
     emit({"phase": "kernels", "k1_cases": n1, "k1_max_abs_err": k1_err,
           "k2_max_abs_err": k2_err,
           "k1_tolerance": "counts, min, max, int sums exact; "
                           "f64 sum |d| <= 1e-12 * sum|x|",
-          "k2_cases": n2, "k2_tolerance": "permutation, tail, count exact",
+          "k2_cases": n2, "k2_sizes": K2_SIZES,
+          "k2_forced_grids": {"sizes": K2_GRID_SIZES, "blocks": K2_GRIDS},
+          "k2_tolerance": "permutation, tail, count equal to the plain "
+                          "version and to numpy's flatnonzero",
           "timings": timings, "nvidia_smi": smi,
           "k1_library": "none: no single PyTorch call gives "
                         "(sum, min, max, count) of a masked column",
           "k2_library": "torch.nonzero(keep); it syncs with the host for "
                         "its output size"})
-    # K3 at both domain ends (1024 and 2^23 segments) and at the grouped
-    # task's and the PARTIAL batch's shapes; timed at those two, at the
-    # FINAL's (the PARTIAL states, 16,384 slots) and at 1024 segments
+    # K3 at both domain ends (1024 and 2^23 segments), at the grouped
+    # task's, the PARTIAL batch's and the FINAL's (the PARTIAL states,
+    # 16,384 slots) shapes, and at a dense 256 KiB domain past one block's
+    # copy, in both variants; timed at the path shapes, at 1024 segments
+    # and at 32 rows a slot
     grouped_shape, partial_shape = (1 << 22, 16384), (16384, 32768)
+    final_shape = (1032192, 16384)
     k3_shapes = [(16384, 1024), (1 << 22, 1024), grouped_shape,
-                 partial_shape, (1 << 22, 1 << 23)]
+                 partial_shape, final_shape, (1 << 22, 32768),
+                 (1 << 22, 1 << 23)]
     n3, k3_err = check_k3(torch, segreduce, rng, k3_shapes)
-    k3_times = [time_k3(torch, segreduce, rng, *sh)
-                for sh in (grouped_shape, partial_shape, (1032192, 16384),
-                           (1 << 22, 1024))]
+    k3_timed = [grouped_shape, partial_shape, final_shape, (1 << 22, 1024),
+                (1 << 19, 16384)]
+    k3_times = [time_k3(torch, segreduce, rng, *sh) for sh in k3_timed]
     emit({"phase": "kernels", "k3_cases": n3, "k3_max_abs_err": k3_err,
           "k3_tolerance": "f64 sums |d| <= 1e-12 * sum|x| per segment; "
                           "int sums, min, max exact",
           "k3_f64_sum_repeatable": k3_repeatable(torch, segreduce, rng,
                                                  *grouped_shape),
           "k3_timings": k3_times, "nvidia_smi": smi,
-          "k3_library": "index_add_ (sum), scatter_reduce_ amin (min)"})
+          "k3_library": "index_add_ (sum, count), scatter_reduce_ amin "
+                        "(min), over torch.where(contrib, widened column)"})
+    emit({"phase": "kernel_profile", "nvidia_smi": smi,
+          "calls": profile_kernel_calls(torch, compact, segreduce, rng)})
 
     # K4 at the batch shape (the largest batch of the three new paths),
     # at the first ladder tier's 4096 rows and at 2^24 rows, for every
@@ -1327,32 +1551,53 @@ def main() -> int:
         res.update(exchange_phase(torch, args.rows, args.seed, kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
-    # the paths that phase 3 did not check
-    new = {"masked_stats": sorted(seen["masked_stats"] - set(sizes)),
-           "compact_perm": sorted(seen["compact_perm"] - set(k2_sizes)),
-           "segment_reduce": sorted(seen["segment_reduce"] - set(k3_shapes)),
-           "murmur3": sorted(seen["murmur3"] - k4_covered)}
+    # the paths that phase 3 did not check, then timed at the most
+    # launched of them
+    new = {"masked_stats": sorted(set(seen["masked_stats"]) - set(sizes)),
+           "compact_perm": sorted(set(seen["compact_perm"])
+                                  - set(K2_SIZES)),
+           "segment_reduce": sorted(set(seen["segment_reduce"])
+                                    - set(k3_shapes)),
+           "murmur3": sorted(set(seen["murmur3"]) - k4_covered)}
     extra = {"masked_stats": check_k1(torch, stats, rng, new["masked_stats"]),
              "compact_perm": check_k2(torch, compact, rng,
                                       new["compact_perm"]),
              "segment_reduce": check_k3(torch, segreduce, rng,
-                                        new["segment_reduce"]),
+                                        new["segment_reduce"],
+                                        variants=False),
              "murmur3": (check_k4_at(torch, murmur3, rng, new["murmur3"]),
                          0)}
     k1_err = max(k1_err, extra["masked_stats"][1])
     k2_err = max(k2_err, extra["compact_perm"][1])
     k3_err = max(k3_err, extra["segment_reduce"][1])
+
+    def most_launched(name, done):
+        return [sh for sh, _ in seen[name].most_common(8) if sh not in done]
+
+    path_times = {
+        "masked_stats": [time_kernels(torch, stats, compact, rng, n)[
+            "masked_stats"] | {"rows": n}
+            for n in most_launched("masked_stats", sizes)],
+        "compact_perm": [time_k2(torch, compact, rng, n)
+                         for n in most_launched("compact_perm", sizes)],
+        "segment_reduce": [
+            time_k3(torch, segreduce, rng, n, k, variants=False)
+            for n, k in most_launched("segment_reduce", k3_timed)],
+    }
     emit({"phase": "kernels_at_path_shapes",
-          "path_shapes": {name: sorted(v) for name, v in seen.items()},
+          "path_shapes": {name: [[sh, c] for sh, c in sorted(v.items())]
+                          for name, v in seen.items()},
           "checked_here": new,
           "cases": {name: v[0] for name, v in extra.items()},
           "max_abs_err": {"masked_stats": k1_err, "compact_perm": k2_err,
-                          "segment_reduce": k3_err, "murmur3": 0}})
+                          "segment_reduce": k3_err, "murmur3": 0},
+          "timings": path_times, "nvidia_smi": smi})
 
     # summary: timings at the main path's batch shape, 16384 rows
-    # (K1, K2) and at the grouped task's shape, float64 sums (K3)
+    # (K1, K2) and at the grouped task's shape, the masked float64 SUM of
+    # a float32 column (K3)
     main_t = dict(timings[0])
-    main_t["segment_reduce"] = k3_times[0]["sum_float64"]
+    main_t["segment_reduce"] = k3_times[0]["sum_float32_masked"]
     # K4 at exchange_agg's map-side shape: 16,384 nullable int32 keys,
     # 200 partitions
     main_t["murmur3"] = k4_times[0]

@@ -177,6 +177,53 @@ def test_k2_matches_compact_indices(cap):
         assert int(n[0]) == int(ref_n)
 
 
+K2_SIZES = [1, 15, 17, 4097, 8191, 8192, 8193]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 7, 15])
+@pytest.mark.parametrize("n", K2_SIZES)
+def test_k2_uint8_views_match_jax(n, offset):
+    """A uint8 mask holding 0..255 (any nonzero byte is kept), taken as a
+    view that starts `offset` bytes into its storage, against numpy's
+    flatnonzero and the JAX package's _compact_indices over `keep != 0`
+    (it sums its mask; the JAX package only passes bool ones): the
+    whole array (0-filled tail included) and the count."""
+    rng = np.random.default_rng(16 + n + offset)
+    store = rng.integers(0, 256, n + 16).astype(np.uint8)
+    store[rng.random(n + 16) < 0.5] = 0
+    store[offset] = 2  # a kept row at each end
+    store[offset + n - 1] = 255
+    view = torch.from_numpy(store)[offset:offset + n]
+    assert view.storage_offset() == offset
+    keep = store[offset:offset + n]
+    ref_idx, ref_n = _compact_indices(jnp.asarray(keep != 0), n)
+    src, cnt = compact.compact_perm(view)
+    exp = np.zeros(n, np.int64)
+    live = np.flatnonzero(keep)
+    exp[:len(live)] = live
+    np.testing.assert_array_equal(src.numpy().astype(np.int64), exp)
+    np.testing.assert_array_equal(np.asarray(ref_idx), exp)
+    assert int(cnt[0]) == int(ref_n) == len(live)
+
+
+@pytest.mark.parametrize("n", K2_SIZES + [0, 65536, 65537, 1 << 24])
+@pytest.mark.parametrize("head", [0, 1, 15])
+def test_k2_allocation_layout(n, head):
+    """One allocation per call: the permutation at 0 and the count word
+    after it on 16-byte boundaries; past 65,536 rows, then the look-back
+    scratch (16 + 8 bytes a tile), whose tiles, laid on the 16-byte grid
+    `head` bytes below the first row, cover every row. Up to 65,536 rows
+    the kernel needs no scratch."""
+    tiles, live_at, words = compact.layout(n, head)
+    assert live_at >= n and live_at % 4 == 0
+    if n <= compact._SMALL_ROWS:
+        assert tiles == 0 and words == live_at + 4
+        return
+    assert tiles * compact._TILE >= head + n
+    assert (tiles - 1) * compact._TILE < head + n
+    assert words == live_at + 4 + (16 + 8 * tiles) // 4
+
+
 def test_k2_gather_is_bit_exact_for_nonfinite():
     """Columns move through the permutation by index_select: NaN
     payloads, infinities and -0.0 survive bit for bit."""

@@ -14,6 +14,8 @@ Inputs come from seeded numpy generators.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -203,17 +205,32 @@ def test_k3_matches_pallas_nonfinite_isolation():
 
 
 def test_k3_wrappers_reject_bad_inputs():
+    """Narrow and float32 columns are taken (they widen in the kernel);
+    other dtypes, int64 gids, mismatched shapes, bad masks or slot lists
+    and an empty domain raise."""
     g = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(TypeError):
-        segreduce.segment_sum(g, torch.zeros(8, dtype=torch.float32), 4)
+        segreduce.segment_sum(g, torch.zeros(8, dtype=torch.float16), 4)
     with pytest.raises(TypeError):
-        segreduce.segment_min(g, torch.zeros(8, dtype=torch.int16), 4)
+        segreduce.segment_min(g, torch.zeros(8, dtype=torch.uint8), 4)
     with pytest.raises(TypeError):
         segreduce.segment_max(g.long(), torch.zeros(8), 4)
     with pytest.raises(ValueError):
         segreduce.segment_sum(g, torch.zeros(4, dtype=torch.float64), 4)
     with pytest.raises(ValueError):
         segreduce.segment_sum(g, torch.zeros(8, dtype=torch.float64), 0)
+    with pytest.raises(ValueError):
+        segreduce.segment_sum(g, torch.zeros(8), 4,
+                              contrib=torch.ones(8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        segreduce.segment_sum(g, torch.zeros(8), 4,
+                              contrib=torch.ones(7, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        segreduce.segment_min(g, torch.zeros(8), 4,
+                              at=torch.zeros(2, dtype=torch.int64))
+    assert segreduce.segment_sum(g, torch.zeros(8), 4).dtype == torch.float64
+    assert segreduce.segment_min(
+        g, torch.zeros(8, dtype=torch.int16), 4).dtype == torch.int32
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
@@ -236,21 +253,268 @@ def test_k3_cpu_never_counts_launches():
     assert segreduce.LAUNCHES == before
 
 
-@pytest.mark.parametrize("n,k,itemsize,shared", [
-    (1 << 22, 16384, 8, False),    # the grouped task's sums: 128 KiB
-    (1 << 22, 16384, 4, True),     # its float32 min and max: 64 KiB
-    (1032192, 16384, 4, False),    # the FINAL: 63 rows a segment
-    (1 << 22, 1024, 8, True),      # the small domain end, 4096 rows each
-    (16384, 1024, 8, False),       # 16 rows a segment
-    (16384, 32768, 8, False),      # the PARTIAL batch: 32,768 slots
-    (1 << 22, 32768, 4, False),    # a 128 KiB copy
-    (1 << 22, 1 << 23, 8, False),  # the unsliced tier's largest domain
+@pytest.mark.parametrize("n,k,op,dtype,pick", [
+    (1 << 22, 16384, "sum", torch.float32, "shared"),  # grouped SUM: 128 KiB
+    (1 << 22, 16384, "sum", torch.bool, "shared"),     # its counts
+    (1 << 22, 16384, "min", torch.float32, "shared"),  # its MIN: 64 KiB
+    (1032192, 16384, "sum", torch.float64, "shared"),  # FINAL: 63 rows a slot
+    (1 << 22, 1024, "max", torch.int64, "shared"),     # the small domain end
+    (1 << 19, 16384, "sum", torch.float32, "global"),  # 32 rows a slot
+    (16384, 1024, "sum", torch.float64, "global"),     # 16 rows a slot
+    (16384, 32768, "sum", torch.float32, "global"),    # the PARTIAL batch
+    (16384, 32768, "min", torch.int8, "global"),
+    (1 << 22, 32768, "sum", torch.bool, "global"),     # 256 KiB: no copy
+    (1 << 22, 32768, "sum", torch.float32, "global"),
+    (1 << 22, 65536, "min", torch.float32, "global"),  # 256 KiB of f32 keys
+    (1 << 22, 65536, "max", torch.int64, "global"),
+    (1 << 22, 65536, "sum", torch.int32, "global"),    # 512 KiB
+    (1 << 22, 1 << 23, "sum", torch.float64, "global"),  # the largest domain
 ])
-def test_k3_variant_by_domain(n, k, itemsize, shared):
+def test_k3_variant_by_domain(n, k, op, dtype, pick):
     """The wrapper's choice between a per-block shared-memory copy of
-    the segments and global atomics, where each was faster on the card
+    the segments and global atomics, where each was fastest on the card
     (PERF.md, K3)."""
-    assert segreduce.uses_shared(n, k, itemsize) is shared
+    assert segreduce.variant(n, k, op, dtype) == pick
+
+
+# ---------------------------------------------------------------------------
+# K3 with the mask and the widening inside: the column in its own dtype
+# ---------------------------------------------------------------------------
+
+_SRC_DTYPES = (np.bool_, np.int8, np.int16, np.int32, np.int64, np.float32,
+               np.float64)
+MASKED_CASES = [(op, d) for op in ("sum", "min", "max") for d in _SRC_DTYPES]
+
+
+def _masked_case(dtype, rng):
+    """(gid, values, contrib): values over the dtype's range with its
+    edge values, NaN/+-inf/+-0.0 for floats; some gids out of range; NaN
+    and the extremes also on masked-out rows, which must not count."""
+    gid = rng.integers(0, K, N).astype(np.int32)
+    gid[::29] = K + 1
+    gid[1::31] = -5
+    if dtype == np.bool_:
+        v = rng.random(N) < 0.5
+    elif np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        v = rng.integers(info.min, info.max, N, dtype=dtype, endpoint=True)
+        v[:4] = [info.min, info.max, 0, -1]
+    else:
+        v = ((rng.random(N) - 0.5) * 2000).astype(dtype)
+        # no subnormals: XLA flushes them on the CPU (ROADMAP section 3);
+        # the encoding twin below covers them
+        v[:8] = [np.nan, np.inf, -np.inf, 0.0, -0.0, np.nan, 1e-30, -1e-30]
+    contrib = rng.random(N) < 0.7
+    contrib[5] = False  # a masked-out NaN
+    return gid, v, contrib
+
+
+def _jax_masked(op, v, gid, contrib, wide):
+    """jax.ops.segment_* over the jnp.where'd, widened column, as the JAX
+    aggregate builds it (blaze_tpu/ops/hash_aggregate.py:1125-1150), in
+    the port's result dtype `wide`."""
+    jv = jnp.asarray(v).astype(wide)
+    if op == "sum":
+        fill = jnp.zeros((), wide)
+    elif np.issubdtype(wide, np.floating):
+        fill = jnp.asarray(np.inf if op == "min" else -np.inf, wide)
+    else:
+        info = np.iinfo(wide)
+        fill = jnp.asarray(info.max if op == "min" else info.min, wide)
+    acc = jnp.where(jnp.asarray(contrib), jv, fill)
+    return np.asarray(_JAX_OPS[op](acc, jnp.asarray(gid), num_segments=K))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "contrib"])
+@pytest.mark.parametrize("op,dtype", MASKED_CASES,
+                         ids=[f"{o}-{d.__name__}" for o, d in MASKED_CASES])
+def test_k3_narrow_masked_matches_jax(op, dtype, masked):
+    """K3 takes the column in its own dtype and the contrib mask: sums
+    widen to int64 / float64, min/max of bool/int8/int16 to int32; the
+    result equals jax.ops.segment_* over the masked, widened column
+    (float64 sums within 1e-12 * sum|x| per segment, the rest bit for
+    bit), and the same at a list of slots (`at`)."""
+    rng = np.random.default_rng(81)
+    gid, v, contrib = _masked_case(dtype, rng)
+    if not masked:
+        contrib = np.ones(N, bool)
+    tv = torch.from_numpy(v)
+    wide = segreduce.result_dtype(op, tv.dtype)
+    exp = _jax_masked(op, v, gid, contrib,
+                      torch.empty((), dtype=wide).numpy().dtype)
+    got = _PORT_OPS[op](torch.from_numpy(gid), tv, K,
+                        torch.from_numpy(contrib) if masked else None)
+    assert got.dtype == wide and got.shape == (K,)
+    got = got.numpy()
+    if op == "sum" and np.issubdtype(exp.dtype, np.floating):
+        live = (gid >= 0) & (gid < K) & contrib
+        mag = np.zeros(K)
+        np.add.at(mag, gid[live], np.abs(v[live].astype(np.float64)))
+        fin = np.isfinite(exp)
+        _same_bits(got[~fin], exp[~fin])
+        assert (np.abs(got[fin] - exp[fin]) <= 1e-12 * mag[fin]).all()
+    else:
+        _same_bits(got, exp)
+    at = rng.integers(0, K, 300).astype(np.int32)
+    taken = _PORT_OPS[op](torch.from_numpy(gid), tv, K,
+                          torch.from_numpy(contrib) if masked else None,
+                          torch.from_numpy(at)).numpy()
+    _same_bits(taken, got[at])
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_k3_masked_matches_pallas(op):
+    """The masked float32 column against the Pallas kernel in interpret
+    mode over the jnp.where'd column (test_pallas_kernels.py's shape and
+    tolerance for sums, exact for min/max)."""
+    rng = np.random.default_rng(82)
+    cap, k = 4096, 512
+    gid = rng.integers(0, k, cap).astype(np.int32)
+    v = (rng.random(cap) * 100 - 50).astype(np.float32)
+    contrib = rng.random(cap) < 0.6
+    port = _PORT_OPS[op](torch.from_numpy(gid), torch.from_numpy(v), k,
+                         torch.from_numpy(contrib)).numpy()
+    if op == "sum":
+        ref = np.asarray(segreduce_pallas.segment_sum(
+            jnp.asarray(gid), jnp.where(contrib, v, 0.0), k))
+        np.testing.assert_allclose(port, ref, rtol=1e-4, atol=1e-3)
+    else:
+        fill = np.inf if op == "min" else -np.inf
+        ref = np.asarray(segreduce_pallas.segment_minmax(
+            jnp.asarray(gid), jnp.where(contrib, v, fill).astype(np.float32),
+            k, op == "min"))
+        _same_bits(port, ref)
+
+
+# A numpy twin of the CUDA accumulator encoding (csrc/segreduce.cu, Acc):
+# every empty accumulator is all-zero bits; max stores ordered(x), min
+# ~ordered(x), both folded with an unsigned max; a NaN is all ones.
+
+_UINT = {np.dtype(np.int32): np.uint32, np.dtype(np.int64): np.uint64,
+         np.dtype(np.float32): np.uint32, np.dtype(np.float64): np.uint64}
+
+
+def _enc_twin(op, x):
+    u = _UINT[x.dtype]
+    sign = u(1) << u(8 * x.itemsize - 1)
+    bits = x.view(u)
+    if np.issubdtype(x.dtype, np.floating):
+        ordered = np.where(bits & sign, ~bits, bits | sign).astype(u)
+    else:
+        ordered = bits ^ sign
+    key = ordered if op == "max" else ~ordered
+    if np.issubdtype(x.dtype, np.floating):
+        key = np.where(np.isnan(x), ~u(0), key).astype(u)
+    return key
+
+
+def _dec_twin(op, dtype, key):
+    dtype = np.dtype(dtype)
+    u = _UINT[dtype]
+    sign = u(1) << u(8 * dtype.itemsize - 1)
+    k = key if op == "max" else ~key
+    if np.issubdtype(dtype, np.floating):
+        bits = np.where(k & sign, k ^ sign, ~k).astype(u)
+        out = bits.view(dtype).copy()
+        out[key == 0] = np.inf if op == "min" else -np.inf
+        out[key == ~u(0)] = np.nan
+        return out
+    return (k ^ sign).astype(u).view(dtype)
+
+
+def _ref_extreme(op, x):
+    """XLA's min/max of a list: NaN wins, -0.0 below +0.0."""
+    if np.issubdtype(x.dtype, np.floating):
+        if np.isnan(x).any():
+            return np.array(np.nan, x.dtype)
+        best = x.min() if op == "min" else x.max()
+        if best == 0:
+            neg = np.signbit(x[x == 0])
+            best = -0.0 if (neg.any() if op == "min" else neg.all()) else 0.0
+        return np.array(best, x.dtype)
+    return np.array(x.min() if op == "min" else x.max(), x.dtype)
+
+
+_BITS = {
+    np.float32: st.integers(0, 2 ** 32 - 1).map(
+        lambda b: np.array([b], np.uint32).view(np.float32)[0]),
+    np.float64: st.integers(0, 2 ** 64 - 1).map(
+        lambda b: np.array([b], np.uint64).view(np.float64)[0]),
+    np.int32: st.integers(-2 ** 31, 2 ** 31 - 1),
+    np.int64: st.integers(-2 ** 63, 2 ** 63 - 1),
+}
+# NaN payloads of both signs, quiet and signalling, +-0, subnormals,
+# +-inf, the largest finite values, and the integer extremes
+_EDGE_BITS = {
+    np.float32: [0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF, 0x7FFFFFFF,
+                 0x0, 0x80000000, 0x1, 0x807FFFFF, 0x7F800000, 0xFF800000,
+                 0x7F7FFFFF, 0xFF7FFFFF],
+    np.float64: [0x7FF8000000000000, 0xFFF8000000000000, 0x7FF0000000000001,
+                 0xFFFFFFFFFFFFFFFF, 0x0, 0x8000000000000000, 0x1,
+                 0x800FFFFFFFFFFFFF, 0x7FF0000000000000, 0xFFF0000000000000,
+                 0x7FEFFFFFFFFFFFFF],
+}
+
+
+def _edges(dtype):
+    if dtype in _EDGE_BITS:
+        u = np.uint32 if dtype == np.float32 else np.uint64
+        return np.array(_EDGE_BITS[dtype], u).view(dtype)
+    info = np.iinfo(dtype)
+    return np.array([info.min, info.max, 0, -1, 1], dtype)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32,
+                                   np.int64], ids=lambda d: d.__name__)
+def test_k3_key_encoding_twin(op, dtype):
+    """The zero-neutral key encoding, on random bit patterns (every NaN
+    payload, subnormals, +-0.0, +-inf, the integer extremes): the
+    unsigned max of the keys of any list, from the all-zero empty key,
+    decodes to XLA's min/max of the list (NaN wins, -0.0 below +0.0);
+    decoding the empty key gives the neutral; every value decodes back
+    to itself bit for bit; non-NaN float keys lie strictly between 0 and
+    all ones."""
+    edges = _edges(dtype)
+    empty = _dec_twin(op, dtype, np.zeros(1, _UINT[np.dtype(dtype)]))[0]
+    neutral = segreduce.neutral(op, torch.from_numpy(edges).dtype)
+    assert empty == neutral
+
+    @settings(max_examples=150, deadline=None, database=None)
+    @given(st.lists(_BITS[dtype], min_size=1, max_size=12))
+    def check(values):
+        x = np.array(values, dtype)
+        keys = _enc_twin(op, x)
+        if np.issubdtype(dtype, np.floating):
+            fin = ~np.isnan(x)
+            ones = ~keys.dtype.type(0)
+            assert (keys[fin] > 0).all() and (keys[fin] < ones).all()
+            assert (keys[~fin] == ones).all()
+            back = _dec_twin(op, dtype, keys[fin])
+            assert np.array_equal(back.view(keys.dtype),
+                                  x[fin].view(keys.dtype))
+        else:
+            assert np.array_equal(_dec_twin(op, dtype, keys), x)
+        folded = np.maximum.reduce(np.concatenate(
+            [np.zeros(1, keys.dtype), keys]))
+        got = _dec_twin(op, dtype, np.array([folded], keys.dtype))[0]
+        exp = _ref_extreme(op, x)
+        if np.isnan(exp):
+            assert np.isnan(got)
+        else:
+            assert np.array(got, dtype).view(keys.dtype) == \
+                exp.view(keys.dtype)
+
+    check()
+    for i in range(len(edges)):  # every edge alone and with each other
+        for j in range(len(edges)):
+            x = edges[[i, j]]
+            folded = _enc_twin(op, x).max()
+            got = _dec_twin(op, dtype, np.array([folded]))[0]
+            exp = _ref_extreme(op, x)
+            assert (np.isnan(got) and np.isnan(exp)) or \
+                np.array(got, dtype).view(_UINT[np.dtype(dtype)]) == \
+                exp.view(_UINT[np.dtype(dtype)])
 
 
 # ---------------------------------------------------------------------------
