@@ -157,17 +157,6 @@ def _check_input_type(what: str, dt: DataType) -> None:
                                   f"{_ROADMAP_DECIMAL}")
 
 
-def _stats(values: torch.Tensor, mask: torch.Tensor):
-    """K1 over a column of any fixed-width dtype: bool, int8 and int16
-    widen to int32 (sums are int64 either way); min and max come back in
-    the column's own dtype."""
-    src = values.dtype
-    if src in (torch.bool, torch.int8, torch.int16):
-        values = values.to(torch.int32)
-    s, lo, hi, cnt = masked_stats(values, mask)
-    return s, lo.to(src), hi.to(src), cnt
-
-
 class _Reductions:
     """Per-group masked reductions of one batch. `sum` (in float64 or
     int64) and `extreme` take the rows where `contrib` holds;
@@ -193,7 +182,9 @@ class _Scalar(_Reductions):
         return mask.sum(dtype=torch.int64).reshape(1)
 
     def _k1(self, v, contrib):
-        s, lo, hi, cnt = _stats(v, contrib)
+        # K1 takes the column in its own dtype; min and max come back in
+        # it, the sum in float64 or int64
+        s, lo, hi, cnt = masked_stats(v, contrib)
         if all(m is not contrib for m, _ in self._counts):
             self._counts.append((contrib, cnt))
         return s, lo, hi

@@ -5,8 +5,9 @@
                                      # (q6, select, exchange_agg, grace),
                                      # 4,194,304 (grouped, repartition)
     python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
-    python3 chip_smoke.py --compare DIR   # K2 and K3 of another checkout
-                                          # against this one, timed
+    python3 chip_smoke.py --compare DIR   # K1, K2 and K3 of another
+                                          # checkout against this one,
+                                          # timed
 
 Phases, one JSON line each:
 
@@ -18,7 +19,14 @@ Phases, one JSON line each:
    (segmented reduce) on the card against their plain PyTorch versions
    at the main paths' shapes, with NaN, +/-inf, all-masked, all-kept,
    out-of-range segment ids, empty segments and int64-wrap inputs from
-   a seeded numpy generator. K2 also on uint8 masks holding 2..255, on
+   a seeded numpy generator. K1 for every column dtype (bool, int8-64,
+   float32/64) and uint8 masks, with values and mask at storage offsets
+   0..15 (lined up or not) in storages whose other rows would count if
+   read, for n in 1, 15, 17, each width's largest one-block size and
+   one row more, 16,383-16,385, 2^24 and 2^24 + 3; at forced grids of
+   1, 133 and 1024 blocks; each call twice with equal bits (the ticket
+   reset); calls in flight on two streams; a float64 sum at 2^24 rows
+   twice, bit for bit. K2 also on uint8 masks holding 2..255, on
    masks that are views at storage offsets 1..15, with kept runs that
    span tiles and one kept row at each end, for n in 1, 15, 17, both
    tiles (4096 and 8192) and their neighbours, the last size without
@@ -34,9 +42,10 @@ Phases, one JSON line each:
    of several payloads, subnormals and +/-inf, for n in 1, 2, 200, 1024
    and the grace moduli 32, 128, 512, at 4096, 16,384 and 2^24 rows.
    Then CUDA-event timings beside each kernel's bound and the PyTorch
-   call for the same function (for K3 with its mask-and-widen pass),
-   and the device operations one K2 or K3 call puts on the card
-   (torch.profiler).
+   call for the same function (for K3 with its mask-and-widen pass; K1
+   has none, and torch.sum over the unmasked column is its yardstick),
+   K1's device time at forced grids, and the device operations one K1,
+   K2 or K3 call puts on the card (torch.profiler).
 4. path: a zstd parquet file of `--rows` rows (TPC-DS store_sales-shaped
    item/qty/price, as in bench.py) goes through the port's
    `execute_task` on cuda twice: the q6 task (filter, project, keyless
@@ -76,11 +85,14 @@ is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 This script imports neither jax nor the JAX package.
 
 --compare DIR times, in the order DIR, this checkout, this checkout,
-DIR (one process each), the grouped aggregate's keyed reductions as
+DIR (one process each), the keyless aggregate's SUM and MIN as
+`_Scalar` makes them (K1 and whatever the checkout does around it, such
+as a widening pass) and K1 alone, for a float32 and an int16 column at
+16,384 and 2^24 rows; the grouped aggregate's keyed reductions as
 `_SegOps` makes them (the masked SUM of a float32 column, the count of a
 mask and the masked MIN, each taken at the occupied slots: K3 and
 whatever the checkout does around it) at the grouped, PARTIAL and FINAL
-shapes, and K2 at the path sizes: ms and device µs a call.
+shapes; and K2 at the path sizes: ms and device µs a call.
 """
 
 from __future__ import annotations
@@ -154,31 +166,46 @@ def bound(nbytes: int, ops: int, ops_rate: float):
 # ---------------------------------------------------------------------------
 
 def k1_cases(rng, n: int):
-    """(name, values, mask) host arrays covering the edge cases."""
-    cases = []
+    """(name, values, mask) host arrays covering the edge cases, made one
+    at a time: every column dtype (bool, int8-64, float32/64), NaN,
+    +/-inf, signed zeros, all-masked, all-kept, int64 sums that wrap and
+    uint8 masks whose kept bytes hold 2..255."""
     for dt in (np.float32, np.float64):
         v = ((rng.random(n) - 0.5) * 1e4).astype(dt)
         m = rng.random(n) < 0.5
-        cases.append((f"{dt.__name__}_random", v, m))
+        yield f"{dt.__name__}_random", v, m
         w = v.copy()
         w[rng.integers(0, n, 3)] = np.inf
         w[rng.integers(0, n, 3)] = -np.inf
-        cases.append((f"{dt.__name__}_inf", w, m))
+        yield f"{dt.__name__}_inf", w, m
         w = v.copy()
         w[rng.integers(0, n, 5)] = np.nan
-        cases.append((f"{dt.__name__}_nan", w, np.ones(n, bool)))
-        cases.append((f"{dt.__name__}_all_masked", v, np.zeros(n, bool)))
-        cases.append((f"{dt.__name__}_all_kept", v, np.ones(n, bool)))
+        yield f"{dt.__name__}_nan", w, np.ones(n, bool)
+        yield f"{dt.__name__}_all_masked", v, np.zeros(n, bool)
+        yield f"{dt.__name__}_all_kept", v, np.ones(n, bool)
         z = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(dt)
-        cases.append((f"{dt.__name__}_signed_zero", z, rng.random(n) < 0.5))
-    for dt in (np.int32, np.int64):
+        yield f"{dt.__name__}_signed_zero", z, rng.random(n) < 0.5
+    for dt in (np.int8, np.int16, np.int32, np.int64):
         info = np.iinfo(dt)
-        v = rng.integers(info.min, info.max, n, dtype=dt)
-        cases.append((f"{dt.__name__}_random", v, rng.random(n) < 0.5))
-        cases.append((f"{dt.__name__}_all_masked", v, np.zeros(n, bool)))
+        v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        yield f"{dt.__name__}_random", v, rng.random(n) < 0.5
+        yield f"{dt.__name__}_all_masked", v, np.zeros(n, bool)
+        if dt in (np.int8, np.int16):
+            yield f"{dt.__name__}_all_kept", v, np.ones(n, bool)
+    b = rng.random(n) < 0.5
+    yield "bool_random", b, rng.random(n) < 0.5
+    yield "bool_all_masked", b, np.zeros(n, bool)
+    yield "bool_all_kept", b, np.ones(n, bool)
+    yield "bool_true", np.ones(n, bool), rng.random(n) < 0.5
     wrap = rng.integers(2 ** 62, 2 ** 63 - 1, n, dtype=np.int64)
-    cases.append(("int64_wrap", wrap, np.ones(n, bool)))
-    return cases
+    yield "int64_wrap", wrap, np.ones(n, bool)
+    u8 = np.where(rng.random(n) < 0.5, rng.integers(2, 256, n),
+                  0).astype(np.uint8)
+    yield "float32_uint8_mask", ((rng.random(n) - 0.5) * 1e4).astype(
+        np.float32), u8
+    yield "int16_uint8_mask", rng.integers(-2 ** 15, 2 ** 15, n).astype(
+        np.int16), u8
+    yield "bool_uint8_mask", rng.random(n) < 0.5, u8
 
 
 def same_value(torch, a, b) -> bool:
@@ -193,39 +220,127 @@ def same_value(torch, a, b) -> bool:
     return bool((a == b).all())
 
 
-def check_k1(torch, stats, rng, sizes):
+def k1_view(torch, arr, offset: int, fill):
+    """arr on the card as a view `offset` elements into a storage whose
+    other elements hold `fill`: a kernel that read a row outside the
+    view would take it (K1's checks fill the mask's storage with 1)."""
+    n = len(arr)
+    t = torch.from_numpy(arr)
+    store = torch.full((n + 32,), fill, dtype=t.dtype, device="cuda")
+    store[offset:offset + n] = t.cuda()
+    view = store[offset:offset + n]
+    assert view.storage_offset() == offset
+    return view
+
+
+# K1's forced grids: one block, one more than the SMs, the most the
+# scratch holds (blaze_tpu_torch/csrc/stats.cu kMaxBlocks)
+K1_GRIDS = (1, 133, 1024)
+# K1's sizes: odd small sizes, the largest one-block size of each
+# element width (8192 rows of 8 bytes ... 65,536 of 1) and one row more,
+# and the q6 batch with its neighbours
+K1_SIZES = [1, 15, 17, 8192, 8193, 16383, 16384, 16385, 32768, 32769,
+            65536, 65537]
+
+
+def check_k1(torch, stats, rng, sizes, offsets=(0,), grids=(None,)):
+    """K1 against its plain version at each size for every case of
+    k1_cases, each launch made twice in a row (equal bits: the ticket
+    was reset). Case i takes its values `offsets[i]` elements and its
+    mask `offsets[7 i + 3]` bytes into their storages (cycling), so the
+    two line up on the 16-byte grid or not; the rows around each view
+    hold a kept NaN or 1, which any read outside the view would count.
+    Each case runs at each grid of `grids` (None: the wrapper's)."""
     max_err = 0.0
     checked = 0
+    i = 0
     for n in sizes:
         for name, v_np, m_np in k1_cases(rng, n):
-            v = torch.from_numpy(v_np).cuda()
-            m = torch.from_numpy(m_np).cuda()
-            got = stats.masked_stats(v, m)
+            off = offsets[i % len(offsets)]
+            moff = offsets[(7 * i + 3) % len(offsets)]
+            i += 1
+            fill = float("nan") if v_np.dtype.kind == "f" else 1
+            v = k1_view(torch, v_np, off, fill)
+            m = k1_view(torch, m_np, moff, 1)
             exp = stats.masked_stats_plain(v, m)
-            torch.cuda.synchronize()
-            s, lo, hi, cnt = (t.cpu() for t in got)
             es, elo, ehi, ecnt = (t.cpu() for t in exp)
-            ok = (same_value(torch, lo, elo) and same_value(torch, hi, ehi)
-                  and int(cnt) == int(ecnt))
-            if v.dtype.is_floating_point:
-                sv, ev = float(s), float(es)
-                if np.isfinite(ev):
-                    sel = v_np[m_np].astype(np.float64)
-                    tol = 1e-12 * float(np.abs(sel).sum())
-                    err = abs(sv - ev)
-                    max_err = max(max_err, err)
-                    ok = ok and err <= tol
+            for g in grids:
+                got = stats._launch(v, m, g)
+                again = stats._launch(v, m, g)
+                torch.cuda.synchronize()
+                s, lo, hi, cnt = (t.cpu() for t in got)
+                ok = (same_value(torch, lo, elo)
+                      and same_value(torch, hi, ehi)
+                      and int(cnt) == int(ecnt)
+                      and all(t.shape == (1,) for t in got)
+                      and all(same_value(torch, a.cpu(), b.cpu())
+                              for a, b in zip(got, again)))
+                if v.dtype.is_floating_point:
+                    sv, ev = float(s), float(es)
+                    if np.isfinite(ev):
+                        sel = v_np[m_np != 0].astype(np.float64)
+                        tol = 1e-12 * float(np.abs(sel).sum())
+                        err = abs(sv - ev)
+                        max_err = max(max_err, err)
+                        ok = ok and err <= tol
+                    else:
+                        ok = ok and same_value(torch, s, es)
                 else:
-                    ok = ok and same_value(torch, s, es)
-            else:
-                ok = ok and int(s) == int(es)
-            if not ok:
-                raise AssertionError(
-                    f"K1 masked_stats {name} n={n}: kernel "
-                    f"{[t.tolist() for t in (s, lo, hi, cnt)]} vs plain "
-                    f"{[t.tolist() for t in (es, elo, ehi, ecnt)]}")
-            checked += 1
+                    ok = ok and int(s) == int(es)
+                if not ok:
+                    raise AssertionError(
+                        f"K1 masked_stats {name} n={n} offsets={off}/{moff} "
+                        f"grid={g}: kernel "
+                        f"{[t.tolist() for t in (s, lo, hi, cnt)]} (again "
+                        f"{[t.cpu().tolist() for t in again]}) vs plain "
+                        f"{[t.tolist() for t in (es, elo, ehi, ecnt)]}")
+                checked += 1
     return checked, max_err
+
+
+def k1_two_streams(torch, stats, rng, n: int, rounds: int = 8) -> int:
+    """Calls in flight on two streams at once (a float32 and an int16
+    column, each stream with its own scratch), `rounds` on each: every
+    result equal to the plain version's bits."""
+    a = torch.from_numpy(((rng.random(n) - 0.5) * 1e4).astype(
+        np.float32)).cuda()
+    b = torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, n).astype(
+        np.int16)).cuda()
+    ma = torch.from_numpy(rng.random(n) < 0.5).cuda()
+    mb = torch.from_numpy(rng.random(n) < 0.7).cuda()
+    exp = {"a": stats.masked_stats_plain(a, ma),
+           "b": stats.masked_stats_plain(b, mb)}
+    first = {"a": stats.masked_stats(a, ma), "b": stats.masked_stats(b, mb)}
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(rounds):
+        with torch.cuda.stream(streams[0]):
+            outs.append(("a", stats.masked_stats(a, ma)))
+        with torch.cuda.stream(streams[1]):
+            outs.append(("b", stats.masked_stats(b, mb)))
+    torch.cuda.synchronize()
+    for key, got in outs:
+        # the float sum against the same grid's first call, bit for bit;
+        # min, max and count, and the int sum, against the plain version
+        ok = same_value(torch, got[0], first[key][0]) and all(
+            same_value(torch, g, e) for g, e in zip(got[1:], exp[key][1:]))
+        if key == "b":
+            ok = ok and same_value(torch, got[0], exp[key][0])
+        if not ok:
+            raise AssertionError(f"K1 masked_stats on two streams ({key}) "
+                                 "differs")
+    return len(outs)
+
+
+def k1_repeatable(torch, stats, rng, n: int) -> bool:
+    """Whether two float64 sums of the same 2^24-row input give the
+    same bits."""
+    v = torch.from_numpy(rng.random(n) * 100).cuda()
+    m = torch.from_numpy(rng.random(n) < 0.5).cuda()
+    a = stats.masked_stats(v, m)[0].clone()
+    b = stats.masked_stats(v, m)[0]
+    return torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
 # K2's rows per look-back tile, per tile of the kernel without
@@ -512,24 +627,56 @@ def time_k2(torch, compact, rng, n: int, p: float = 0.5):
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
+def time_k1(torch, stats, rng, n: int, dtype=np.float32):
+    """K1 and its plain version on a column of n rows (bool mask, half
+    kept). Bound: each value and mask byte read once, the 32-byte result
+    written once. No PyTorch call gives all four results; the yardstick
+    is torch.sum(v, dtype=float64) over the same unmasked column, which
+    reads fewer bytes than K1 does."""
+    if dtype == np.float32:
+        v_np = (rng.random(n) * 100).astype(np.float32)
+    else:
+        v_np = rng.integers(-2 ** 15, 2 ** 15, n).astype(dtype)
+    v = torch.from_numpy(v_np).cuda()
+    m = torch.from_numpy(rng.random(n) < 0.5).cuda()
+    nbytes = n * (v.element_size() + 1) + 32
+    b_ms, b_by = bound(nbytes, 4 * n, CUDA_CORE_OPS_PER_S)
+    return {"rows": n, "dtype": np.dtype(dtype).name,
+            "ms": cuda_ms(torch, lambda: stats.masked_stats(v, m)),
+            "plain_ms": cuda_ms(torch,
+                                lambda: stats.masked_stats_plain(v, m)),
+            "sum_f64_ms": cuda_ms(torch, lambda: torch.sum(
+                v, dtype=torch.float64)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes}
+
+
+def k1_grid_sweep(torch, stats, rng):
+    """Device µs a K1 call at forced grids (the evidence for `grid`):
+    one block against a few at the q6 batch of float32 and float64 and
+    at 65,536 float32 rows; one, two and four blocks an SM at 2^24
+    float32 rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for n, dt, grids in ((16384, np.float32, (1, 2, 4)),
+                         (16384, np.float64, (1, 2, 4, 8)),
+                         (65536, np.float32, (1, 4, 8, 16)),
+                         (1 << 24, np.float32, (sms, 2 * sms, 4 * sms))):
+        v = torch.from_numpy((rng.random(n) * 100).astype(dt)).cuda()
+        m = torch.from_numpy(rng.random(n) < 0.5).cuda()
+        row = {"picked": stats.grid(n, v.element_size(), sms)}
+        for g in grids:
+            prof = device_ops(torch, lambda: stats._launch(v, m, g))
+            row[str(g)] = prof["device_us_per_call"]
+        out[f"{n}_{np.dtype(dt).name}"] = row
+    return out
+
+
 def time_kernels(torch, stats, compact, rng, n: int):
     """Kernel, plain and library times at one shape (f32 values, bool
     masks: the q6 path's dtypes)."""
-    v = torch.from_numpy((rng.random(n) * 100).astype(np.float32)).cuda()
-    m = torch.from_numpy(rng.random(n) < 0.5).cuda()
-    k1_ms = cuda_ms(torch, lambda: stats.masked_stats(v, m))
-    k1_plain = cuda_ms(torch, lambda: stats.masked_stats_plain(v, m))
-    # K1 moves each value (4 B) and mask byte once and does ~4 operations
-    # a row
-    k1_bytes = n * (4 + 1) + 8 + 4 + 4 + 8
-    k1_bound, k1_by = bound(k1_bytes, 4 * n, CUDA_CORE_OPS_PER_S)
-    return {
-        "rows": n,
-        "masked_stats": {"ms": k1_ms, "plain_ms": k1_plain,
-                         "bound_ms": k1_bound, "bound_by": k1_by,
-                         "bytes": k1_bytes, "library_ms": None},
-        "compact_perm": time_k2(torch, compact, rng, n),
-    }
+    return {"rows": n, "masked_stats": time_k1(torch, stats, rng, n),
+            "compact_perm": time_k2(torch, compact, rng, n)}
 
 
 def device_ops(torch, fn, calls: int = 20):
@@ -542,13 +689,17 @@ def device_ops(torch, fn, calls: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    if not ev:
+    for _ in range(3):  # the profiler now and then sees no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        if ev:
+            break
+    else:
         return {"ops_per_call": "not measured",
                 "device_us_per_call": "not measured"}
     return {"ops_per_call": sum(e.count for e in ev) / calls,
@@ -557,12 +708,19 @@ def device_ops(torch, fn, calls: int = 20):
                                       for e in ev) / calls}
 
 
-def profile_kernel_calls(torch, compact, segreduce, rng):
-    """Device operations per call of K2 (the select batch, a reduce
-    task's table, 2^24 rows) and K3 as the grouped aggregate calls it
-    (the column, its mask and the occupied slots) at the grouped,
-    PARTIAL and FINAL shapes."""
+def profile_kernel_calls(torch, stats, compact, segreduce, rng):
+    """Device operations per call of K1 (the q6 batch of float32 and of
+    int16, 2^24 float32 rows), K2 (the select batch, a reduce task's
+    table, 2^24 rows) and K3 as the grouped aggregate calls it (the
+    column, its mask and the occupied slots) at the grouped, PARTIAL and
+    FINAL shapes."""
     out = {}
+    for n, dt in ((16384, np.float32), (16384, np.int16),
+                  (1 << 24, np.float32)):
+        v = torch.from_numpy((rng.random(n) * 100).astype(dt)).cuda()
+        m = torch.from_numpy(rng.random(n) < 0.5).cuda()
+        out[f"masked_stats_{np.dtype(dt).name}_{n}"] = device_ops(
+            torch, lambda: stats.masked_stats(v, m))
     for n in (16384, 1 << 18, 1 << 24):
         keep = torch.from_numpy(rng.random(n) < 0.5).cuda()
         out[f"compact_perm_{n}"] = device_ops(
@@ -798,7 +956,7 @@ def q6_plan(scan, aggregate: bool):
 # `_launch`: rows for K1 and K2, (rows, segments) for K3 (every case of
 # check_k3 runs at each)
 LAUNCH_SHAPE = {
-    "masked_stats": lambda values, mask: values.numel(),
+    "masked_stats": lambda values, mask, *_: values.numel(),
     "compact_perm": lambda keep: keep.numel(),
     "segment_reduce": lambda op, gid, values, k, *_: (values.numel(), k),
     "murmur3": lambda group, h_in, num_rows, cap, n, emit_hash:
@@ -885,9 +1043,9 @@ def profile_run(torch, fn, task: str, wall: float):
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     ours = [e for e in dev if any(
-        k in e.key for k in ("stats_partial", "stats_final",
-                             "compact_small", "compact_lookback", "seg_shared",
-                             "seg_global", "seg_decode", "partition_ids"))]
+        k in e.key for k in ("masked_stats_kernel", "compact_small",
+                             "compact_lookback", "seg_shared", "seg_global",
+                             "seg_decode", "partition_ids"))]
     emit({"phase": "profile", "task": task,
           "device_busy_ms": busy_ms if dev else "not measured",
           "device_calls": sum(e.count for e in dev),
@@ -1380,16 +1538,31 @@ def time_tree(torch, tree: str):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
     sys.path.insert(0, os.path.abspath(tree))
-    from blaze_tpu_torch.ops.hash_aggregate import _SegOps
-    from blaze_tpu_torch.ops.kernels import _build, compact
+    from blaze_tpu_torch.ops.hash_aggregate import _Scalar, _SegOps
+    from blaze_tpu_torch.ops.kernels import _build, compact, stats
 
-    _build.build(["compact", "segreduce"])
+    _build.build(["stats", "compact", "segreduce"])
     rng = np.random.default_rng(7)
     out = {"phase": "compare", "tree": tree}
 
     def timed(fn):
+        try:
+            fn()
+        except TypeError as e:  # a dtype the tree's kernel does not take
+            return f"unsupported: {e}"
         return {"ms": cuda_ms(torch, fn),
                 "device_us": device_ops(torch, fn)["device_us_per_call"]}
+
+    # K1 as the keyless aggregate calls it (SUM and MIN of a masked
+    # column, with whatever the tree does around the kernel) and alone
+    for n in (16384, 1 << 24):
+        m = torch.from_numpy(rng.random(n) < 0.5).cuda()
+        for dt in (np.float32, np.int16):
+            v = torch.from_numpy((rng.random(n) * 100).astype(dt)).cuda()
+            out[f"k1_{np.dtype(dt).name}_{n}"] = {
+                "scalar_sum": timed(lambda: _Scalar().sum(v, m)),
+                "scalar_min": timed(lambda: _Scalar().extreme(True, v, m)),
+                "masked_stats": timed(lambda: stats.masked_stats(v, m))}
 
     # (rows, slots, occupied slots): the grouped, PARTIAL and FINAL shapes
     for n, k, m in ((1 << 22, 16384, 4096), (16384, 32768, 16384),
@@ -1418,8 +1591,9 @@ def main() -> int:
                     help="parquet rows of the grouped tasks")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--compare", metavar="DIR",
-                    help="another checkout of the repository: time its K2 "
-                         "and keyed reductions against this one's")
+                    help="another checkout of the repository: time its K1, "
+                         "K2 and keyed and keyless reductions against this "
+                         "one's")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -1478,7 +1652,19 @@ def main() -> int:
     # 3. kernels against their plain versions, on the card
     rng = np.random.default_rng(args.seed)
     sizes = [16384, 1 << 24]
-    n1, k1_err = check_k1(torch, stats, rng, sizes)
+    # K1 at every size with storage offsets 0..15, at 2^24 and 2^24 + 3,
+    # and at forced grids
+    n1, k1_err = check_k1(torch, stats, rng, K1_SIZES, offsets=range(16))
+    for more in (check_k1(torch, stats, rng, [1 << 24, (1 << 24) + 3],
+                          offsets=(0, 5, 0, 3)),
+                 check_k1(torch, stats, rng, [17, 16385, 1 << 20],
+                          offsets=range(16), grids=K1_GRIDS)):
+        n1 += more[0]
+        k1_err = max(k1_err, more[1])
+    k1_streams = k1_two_streams(torch, stats, rng, 1 << 24)
+    if not k1_repeatable(torch, stats, rng, 1 << 24):
+        raise AssertionError("K1: two float64 sums of one 2^24-row column "
+                             "differ in their bits")
     n2, k2_err = check_k2(torch, compact, rng, K2_SIZES,
                           all_offsets=(4097, K2_TILE + 1))
     n2 += check_k2(torch, compact, rng, K2_GRID_SIZES, grids=K2_GRIDS)[0]
@@ -1486,7 +1672,16 @@ def main() -> int:
     emit({"phase": "kernels", "k1_cases": n1, "k1_max_abs_err": k1_err,
           "k2_max_abs_err": k2_err,
           "k1_tolerance": "counts, min, max, int sums exact; "
-                          "f64 sum |d| <= 1e-12 * sum|x|",
+                          "f64 sum |d| <= 1e-12 * sum|x|; each call twice "
+                          "with equal bits",
+          "k1_sizes": K1_SIZES + [1 << 24, (1 << 24) + 3],
+          "k1_forced_grids": {"sizes": [17, 16385, 1 << 20],
+                              "blocks": K1_GRIDS},
+          "k1_two_stream_calls": k1_streams,
+          "k1_f64_sum_repeatable": True,
+          "k1_int16": [time_k1(torch, stats, rng, n, np.int16)
+                       for n in sizes],
+          "k1_grids_device_us": k1_grid_sweep(torch, stats, rng),
           "k2_cases": n2, "k2_sizes": K2_SIZES,
           "k2_forced_grids": {"sizes": K2_GRID_SIZES, "blocks": K2_GRIDS},
           "k2_tolerance": "permutation, tail, count equal to the plain "
@@ -1519,7 +1714,8 @@ def main() -> int:
           "k3_library": "index_add_ (sum, count), scatter_reduce_ amin "
                         "(min), over torch.where(contrib, widened column)"})
     emit({"phase": "kernel_profile", "nvidia_smi": smi,
-          "calls": profile_kernel_calls(torch, compact, segreduce, rng)})
+          "calls": profile_kernel_calls(torch, stats, compact, segreduce,
+                                        rng)})
 
     # K4 at the batch shape (the largest batch of the three new paths),
     # at the first ladder tier's 4096 rows and at 2^24 rows, for every
@@ -1575,9 +1771,8 @@ def main() -> int:
         return [sh for sh, _ in seen[name].most_common(8) if sh not in done]
 
     path_times = {
-        "masked_stats": [time_kernels(torch, stats, compact, rng, n)[
-            "masked_stats"] | {"rows": n}
-            for n in most_launched("masked_stats", sizes)],
+        "masked_stats": [time_k1(torch, stats, rng, n)
+                         for n in most_launched("masked_stats", sizes)],
         "compact_perm": [time_k2(torch, compact, rng, n)
                          for n in most_launched("compact_perm", sizes)],
         "segment_reduce": [

@@ -24,12 +24,19 @@ CAP = 4096
 
 
 def _k1_case(name, dtype, rng, n=CAP):
-    """(values, mask) host arrays for one named case."""
-    if np.issubdtype(dtype, np.floating):
+    """(values, mask) host arrays for one named case; "u8_mask" keeps
+    the rows whose uint8 mask byte holds 2..255."""
+    if dtype == np.bool_:
+        v = rng.random(n) < 0.5
+    elif np.issubdtype(dtype, np.floating):
         v = ((rng.random(n) - 0.5) * 2000).astype(dtype)
     else:
-        v = rng.integers(-1000, 1000, n).astype(dtype)
+        info = np.iinfo(dtype)
+        v = rng.integers(max(info.min, -1000), min(info.max, 1000),
+                         n).astype(dtype)
     m = rng.random(n) < 0.6
+    if name == "u8_mask":
+        m = np.where(m, rng.integers(2, 256, n), 0).astype(np.uint8)
     if name == "nan":
         v[rng.integers(0, n, 4)] = np.nan
         m[:] = True
@@ -98,46 +105,118 @@ def test_k1_matches_pallas_interpret(dtype, name):
 
 SEGOPS_CASES = [
     (d, n)
-    for d in (np.float32, np.float64, np.int32, np.int64)
+    for d in (np.float32, np.float64, np.int32, np.int64, np.bool_, np.int8,
+              np.int16)
     for n in ("random", "nan", "inf", "all_masked", "all_kept",
               "signed_zero", "neg_zero")
     if np.issubdtype(d, np.floating) or n in ("random", "all_masked",
                                               "all_kept")
-] + [(np.int64, "wrap")]
+] + [(np.int64, "wrap")] + [
+    (d, "u8_mask") for d in (np.float32, np.int16, np.bool_)]
 
 
-@pytest.mark.parametrize("dtype,name", SEGOPS_CASES,
-                         ids=[f"{d.__name__}-{n}" for d, n in SEGOPS_CASES])
-def test_k1_matches_keyless_segops(dtype, name):
-    """K1 against the jnp reductions the JAX keyless aggregate runs
-    (`_SegOps.scalar` over the masked acc/contrib of `_agg_state`):
-    ints, counts and min/max exact, float64 sums within 1e-12 * sum|x|."""
-    rng = np.random.default_rng(12)
-    v, m = _k1_case(name, dtype, rng)
+def _jax_keyless(v, m):
+    """(sum, min, max, count) by the jnp reductions the JAX keyless
+    aggregate runs (`_SegOps.scalar` over the masked acc/contrib of
+    `_agg_state`); a bool's min and max are its AND and OR, with True
+    and False as the identities."""
     seg = _SegOps(None, 1, True)
-    jv, jm = jnp.asarray(v), jnp.asarray(m)
-    st = jnp.float64 if np.issubdtype(dtype, np.floating) else jnp.int64
+    jv, jm = jnp.asarray(v), jnp.asarray(m) != 0
+    st = jnp.float64 if np.issubdtype(v.dtype, np.floating) else jnp.int64
     exp_sum = np.asarray(seg.sum(jnp.where(jm, jv, 0).astype(st)))[0]
-    if np.issubdtype(dtype, np.floating):
+    if v.dtype == np.bool_:
+        lo_n, hi_n = True, False
+    elif np.issubdtype(v.dtype, np.floating):
         lo_n, hi_n = jnp.inf, -jnp.inf
     else:
-        lo_n, hi_n = np.iinfo(dtype).max, np.iinfo(dtype).min
-    exp_lo = np.asarray(seg.min(jnp.where(jm, jv, jnp.asarray(lo_n, dtype))))
-    exp_hi = np.asarray(seg.max(jnp.where(jm, jv, jnp.asarray(hi_n, dtype))))
+        lo_n, hi_n = np.iinfo(v.dtype).max, np.iinfo(v.dtype).min
+    exp_lo = np.asarray(seg.min(jnp.where(jm, jv, jnp.asarray(lo_n,
+                                                              v.dtype))))
+    exp_hi = np.asarray(seg.max(jnp.where(jm, jv, jnp.asarray(hi_n,
+                                                              v.dtype))))
     exp_cnt = int(np.asarray(seg.sum(jm.astype(jnp.int64)))[0])
-    s, lo, hi, c = _port_stats(v, m)
+    return exp_sum, exp_lo[0], exp_hi[0], exp_cnt
+
+
+def _assert_matches_jax(v, m, got):
+    """ints, counts and min/max exact (min and max in the column's
+    dtype), float64 sums within 1e-12 * sum|x|."""
+    s, lo, hi, c = got
+    exp_sum, exp_lo, exp_hi, exp_cnt = _jax_keyless(v, m)
     assert c == exp_cnt
-    assert _same(lo, exp_lo[0]) and _same(hi, exp_hi[0])
+    assert _same(lo, exp_lo) and _same(hi, exp_hi)
     assert lo.dtype == v.dtype and hi.dtype == v.dtype
-    if np.issubdtype(dtype, np.floating):
+    if np.issubdtype(v.dtype, np.floating):
         assert s.dtype == np.float64
         if np.isfinite(exp_sum):
-            tol = 1e-12 * np.abs(v[m].astype(np.float64)).sum()
+            tol = 1e-12 * np.abs(v[m != 0].astype(np.float64)).sum()
             assert abs(s - exp_sum) <= tol
         else:
             assert _same(s, exp_sum)
     else:
         assert s.dtype == np.int64 and s == exp_sum
+
+
+@pytest.mark.parametrize("dtype,name", SEGOPS_CASES,
+                         ids=[f"{d.__name__}-{n}" for d, n in SEGOPS_CASES])
+def test_k1_matches_keyless_segops(dtype, name):
+    """K1 against the jnp reductions the JAX keyless aggregate runs, for
+    every column dtype K1 takes (bool, int8-64, float32/64) and uint8
+    masks holding 2..255."""
+    rng = np.random.default_rng(12)
+    v, m = _k1_case(name, dtype, rng)
+    _assert_matches_jax(v, m, _port_stats(v, m))
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_k1_views_at_storage_offsets_match_jax(offset):
+    """Values and mask as views `offset` and 16 - `offset` elements into
+    their storages (a sliced batch column starts anywhere), int16 values
+    and a uint8 mask, against the JAX reductions on the same rows."""
+    rng = np.random.default_rng(100 + offset)
+    n = 1000
+    v, m = _k1_case("u8_mask", np.int16, rng, n)
+    vs = torch.zeros(n + 16, dtype=torch.int16)
+    ms = torch.zeros(n + 16, dtype=torch.uint8)
+    moff = 16 - offset
+    vs[offset:offset + n] = torch.from_numpy(v)
+    ms[moff:moff + n] = torch.from_numpy(m)
+    got = stats.masked_stats(vs[offset:offset + n], ms[moff:moff + n])
+    assert got[0].device.type == "cpu"
+    s, lo, hi, c = (t.numpy()[0] for t in got)
+    _assert_matches_jax(v, m, (s, lo, hi, int(c)))
+
+
+K1_DTYPES = [torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
+             torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
+def test_k1_results_are_views_of_one_buffer(dtype):
+    """The four results keep their dtypes and shape (1,), as views of one
+    32-byte buffer laid out as the kernel writes it: the sum at byte 0,
+    the count at 8, min at 16 and max right after it."""
+    v = torch.zeros(40, dtype=dtype)
+    res = stats.masked_stats(v, torch.ones(40, dtype=torch.bool))
+    acc = torch.float64 if dtype.is_floating_point else torch.int64
+    assert [t.dtype for t in res] == [acc, dtype, dtype, torch.int64]
+    assert all(t.shape == (1,) for t in res)
+    base = res[0].untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base for t in res)
+    assert res[0].untyped_storage().nbytes() == 32
+    starts = [t.data_ptr() - base for t in res]
+    assert starts == [0, 16, 16 + v.element_size(), 8]
+
+
+def test_k1_grid():
+    """One block up to 64 KiB of values, then one per 32 KiB round, at
+    most two an SM."""
+    assert stats.grid(0, 4, 132) == 1
+    assert stats.grid(16384, 4, 132) == 1
+    assert stats.grid(65536, 1, 132) == 1
+    assert stats.grid(16385, 4, 132) == 3
+    assert stats.grid(16384, 8, 132) == 4
+    assert stats.grid(1 << 24, 4, 132) == 264
 
 
 def _k2_masks(rng, n):

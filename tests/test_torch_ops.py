@@ -232,6 +232,57 @@ def test_second_slice_aggregates_match_jax(keys, aggs):
                                    equal_nan=True, err_msg=name)
 
 
+NARROW = Schema([
+    Field("b", DataType.int8()),
+    Field("h", DataType.int16()),
+    Field("p", DataType.bool_()),
+])
+
+
+def _narrow_scans():
+    """Batches of int8, int16 and bool columns with nulls and a
+    selection, the same in both packages."""
+    port, ref = [], []
+    for i, rows in enumerate(ROWS):
+        rng = np.random.default_rng(200 + i)
+        values = [rng.integers(-128, 128, CAP).astype(np.int8),
+                  rng.integers(-2 ** 15, 2 ** 15, CAP).astype(np.int16),
+                  rng.random(CAP) < 0.7]
+        validity = [rng.random(CAP) < 0.8 for _ in values]
+        sel = rng.random(CAP) < 0.9
+        port.append(interop.batch_from_numpy(
+            NARROW, values, validity, sel, rows, "cpu"))
+        ref.append(jax_batch(NARROW, values, validity, sel, rows))
+    return (MemoryScanExec([port], NARROW),
+            jax_ops.MemoryScanExec([ref], jax_schema(NARROW)))
+
+
+@pytest.mark.parametrize("col", ["b", "h", "p"])
+@pytest.mark.parametrize("mode", ["complete", "partial_final"])
+def test_keyless_narrow_columns_match_jax(mode, col):
+    """SUM, MIN, MAX and AVG over an int8, int16 or bool column, keyless,
+    COMPLETE or PARTIAL per batch then FINAL: K1 takes the column in its
+    own dtype (no widening pass before it), against the JAX package."""
+    pscan, jscan = _narrow_scans()
+    aggs = [(AggExpr(fn, Col(col)), f"{fn.value}_{col}")
+            for fn in (AggFn.SUM, AggFn.MIN, AggFn.MAX, AggFn.AVG)]
+    jaggs = [(jx(a), n) for a, n in aggs]
+    if mode == "complete":
+        port = HashAggregateExec(pscan, [], aggs, AggMode.COMPLETE)
+        ref = jax_ops.HashAggregateExec(jscan, [], jaggs,
+                                        jax_ops.AggMode.COMPLETE)
+    else:
+        port = HashAggregateExec(
+            HashAggregateExec(pscan, [], aggs, AggMode.PARTIAL), [], aggs,
+            AggMode.FINAL)
+        ref = jax_ops.HashAggregateExec(
+            jax_ops.HashAggregateExec(jscan, [], jaggs,
+                                      jax_ops.AggMode.PARTIAL),
+            [], jaggs, jax_ops.AggMode.FINAL)
+    got, exp = _run(port, ref)
+    _assert_agg_equal(got, exp)
+
+
 _WIDE = Schema([
     Field("s", DataType.utf8()), Field("w", DataType.decimal(30, 2)),
     Field("m", DataType.decimal(12, 2)), Field("a", DataType.int32()),
