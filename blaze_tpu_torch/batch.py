@@ -12,6 +12,10 @@ operators (reference exec.rs:196-255). As in the JAX package:
 - A filter defers its work into `selection`, a device row mask; the
   next pipeline breaker or the host boundary compacts it away.
 
+A scan's batches are `PackedColumnBatch`es: every buffer a view of one
+device byte buffer that crossed in one H2D copy (runtime/pack.py).
+`to_arrow` fetches a batch's buffers in one D2H copy.
+
 This slice carries fixed-width types only: bool, int8-64, float32/64,
 date32, timestamp_us and decimal(<=18) as unscaled int64. Strings
 (dictionary codes) and wide decimals raise NotImplementedError at the
@@ -21,7 +25,7 @@ host boundary.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,68 +126,45 @@ class ColumnBatch:
                    device: Optional[torch.device] = None) -> "ColumnBatch":
         """Build from a pyarrow RecordBatch: pad to a shape bucket on
         the host, then one blocking H2D copy per buffer."""
-        import pyarrow as pa
-
         device = torch.device(device) if device is not None \
             else default_device()
-        schema = from_arrow_schema(rb.schema)
+        schema, host = host_columns(rb)
         n = rb.num_rows
         cap = capacity or get_config().bucket_for(n)
         cols: List[Column] = []
-        for i, field in enumerate(schema):
-            dt = field.dtype
-            check_fixed_width(dt)
-            arr = rb.column(i)
-            if isinstance(arr, pa.ChunkedArray):
-                arr = arr.combine_chunks()
-            has_nulls = arr.null_count > 0
-            valid = ~np.asarray(arr.is_null()) if has_nulls else None
-            if dt.id is TypeId.DECIMAL:
-                np_vals = _decimal_unscaled_i64(arr)
-            elif dt.id is TypeId.TIMESTAMP_US:
-                np_vals = arr.cast(pa.timestamp("us")).fill_null(0) \
-                    .to_numpy(zero_copy_only=False).view(np.int64)
-            elif dt.id is TypeId.DATE32:
-                np_vals = arr.cast(pa.int32()).fill_null(0).to_numpy(
-                    zero_copy_only=False)
-            elif dt.id is TypeId.NULL:
-                np_vals = np.zeros(n, dtype=np.int8)
-            else:
-                if has_nulls:
-                    # nulls are tracked in validity; fill so pyarrow
-                    # does not surface ints as float64 with NaN
-                    arr = arr.fill_null(
-                        False if dt.id is TypeId.BOOL else 0)
-                np_vals = arr.to_numpy(zero_copy_only=False)
-            values = _h2d(_pad(np_vals.astype(dt.physical_dtype(),
-                                              copy=False), cap, 0), device)
+        for field, (vals, valid) in zip(schema, host):
+            values = _h2d(_pad(vals, cap, 0), device)
             validity = None
-            if dt.id is TypeId.NULL:
-                # all-invalid including the padding tail
-                validity = _h2d(np.zeros(cap, dtype=bool), device)
-            elif has_nulls:
-                # padding rows stay "valid"
-                validity = _h2d(_pad(valid, cap, True), device)
-            cols.append(Column(dt, values, validity))
+            if valid is not None:
+                # padding rows stay valid, but for the NULL type
+                fill = field.dtype.id is not TypeId.NULL
+                validity = _h2d(_pad(valid, cap, fill), device)
+            cols.append(Column(field.dtype, values, validity))
         return ColumnBatch(schema, cols, n)
 
     def to_arrow(self):
-        """Materialize the live rows back to a pyarrow RecordBatch:
-        one D2H copy per buffer, sliced on the device to `num_rows`."""
+        """Materialize the live rows back to a pyarrow RecordBatch: the
+        live prefix of every buffer in one D2H fetch
+        (runtime/pack.get_packed)."""
         import pyarrow as pa
 
+        from blaze_tpu_torch.runtime.pack import get_packed
+
         n = self.num_rows
-        sel = None
+        wanted = [c.values[:n] for c in self.columns]
+        wanted += [c.validity[:n] for c in self.columns
+                   if c.validity is not None]
         if self.selection is not None:
-            sel = _d2h(self.selection[:n])
+            wanted.append(self.selection[:n])
+        host = iter(get_packed(wanted))
+        values = [next(host) for _ in self.columns]
+        masks = [None if c.validity is None else ~next(host)
+                 for c in self.columns]
+        sel = next(host) if self.selection is not None else None
         arrays = []
         fields = []
-        for field, col in zip(self.schema, self.columns):
+        for field, vals, mask in zip(self.schema, values, masks):
             dt = field.dtype
-            vals = _d2h(col.values[:n])
-            mask = None
-            if col.validity is not None:
-                mask = ~_d2h(col.validity[:n])
             if sel is not None:
                 vals = vals[sel]
                 if mask is not None:
@@ -206,6 +187,91 @@ class ColumnBatch:
         return pa.RecordBatch.from_arrays(arrays, schema=pa.schema(fields))
 
 
+@dataclasses.dataclass
+class PackedColumnBatch(ColumnBatch):
+    """A batch whose buffers are typed views of ONE device byte buffer,
+    filled by one H2D copy (runtime/pack.put_packed); the counterpart
+    of the JAX package's `PackedColumnBatch` (blaze_tpu/batch.py).
+
+    `buf` also holds the live row count in its header, so a CUDA graph
+    over the batch reads it on the device (ops/fused.py). `key` names
+    the layout - capacity and each column's dtype and validity - which
+    decides whether two batches can share one graph. The batch is an
+    ordinary ColumnBatch to every other operator."""
+
+    buf: Optional[torch.Tensor] = None
+    key: Tuple = ()
+
+    @staticmethod
+    def from_arrow(rb, capacity: Optional[int] = None,
+                   device: Optional[torch.device] = None,
+                   staging=None) -> "PackedColumnBatch":
+        """Pad and pack a RecordBatch on the host and copy it to the
+        device in one transfer; CUDA devices need a `pack.Staging`."""
+        from blaze_tpu_torch.runtime.pack import put_packed
+
+        device = torch.device(device) if device is not None \
+            else default_device()
+        schema, host = host_columns(rb)
+        n = rb.num_rows
+        cap = capacity or get_config().bucket_for(n)
+        segments = []
+        for field, (vals, valid) in zip(schema, host):
+            segments.append((vals, 0))
+            if valid is not None:
+                segments.append((valid, field.dtype.id is not TypeId.NULL))
+        buf, views = put_packed(segments, n, cap, device, staging)
+        it = iter(views)
+        cols = []
+        for field, (_, valid) in zip(schema, host):
+            values = next(it)
+            cols.append(Column(field.dtype, values,
+                               next(it) if valid is not None else None))
+        key = (cap, tuple((str(c.values.dtype), c.validity is not None)
+                          for c in cols))
+        return PackedColumnBatch(schema, cols, n, None, buf, key)
+
+
+def host_columns(rb):
+    """(schema, [(values, validity or None)]) of a RecordBatch as host
+    numpy arrays of the live rows: values in the physical dtype, NULLs
+    filled, validity only for a column with NULLs (all False for the
+    NULL type)."""
+    import pyarrow as pa
+
+    schema = from_arrow_schema(rb.schema)
+    n = rb.num_rows
+    out = []
+    for i, field in enumerate(schema):
+        dt = field.dtype
+        check_fixed_width(dt)
+        arr = rb.column(i)
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        has_nulls = arr.null_count > 0
+        valid = ~np.asarray(arr.is_null()) if has_nulls else None
+        if dt.id is TypeId.DECIMAL:
+            np_vals = _decimal_unscaled_i64(arr)
+        elif dt.id is TypeId.TIMESTAMP_US:
+            np_vals = arr.cast(pa.timestamp("us")).fill_null(0) \
+                .to_numpy(zero_copy_only=False).view(np.int64)
+        elif dt.id is TypeId.DATE32:
+            np_vals = arr.cast(pa.int32()).fill_null(0).to_numpy(
+                zero_copy_only=False)
+        elif dt.id is TypeId.NULL:
+            np_vals = np.zeros(n, dtype=np.int8)
+            valid = np.zeros(n, dtype=bool)
+        else:
+            if has_nulls:
+                # nulls are tracked in validity; fill so pyarrow
+                # does not surface ints as float64 with NaN
+                arr = arr.fill_null(
+                    False if dt.id is TypeId.BOOL else 0)
+            np_vals = arr.to_numpy(zero_copy_only=False)
+        out.append((np_vals.astype(dt.physical_dtype(), copy=False), valid))
+    return schema, out
+
+
 def _pad(a: np.ndarray, cap: int, fill) -> np.ndarray:
     if len(a) == cap:
         # pyarrow's zero-copy views are read-only; torch wants its own
@@ -223,13 +289,6 @@ def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
         return t
     dispatch.record("h2d_copies")
     return t.to(device)
-
-
-def _d2h(t: torch.Tensor) -> np.ndarray:
-    if t.device.type != "cpu":
-        dispatch.record("d2h_fetches")
-        t = t.cpu()
-    return t.numpy()
 
 
 def _decimal_unscaled_i64(arr) -> np.ndarray:

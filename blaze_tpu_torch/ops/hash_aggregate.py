@@ -161,10 +161,25 @@ class _Reductions:
     """Per-group masked reductions of one batch. `sum` (in float64 or
     int64) and `extreme` take the rows where `contrib` holds;
     `count(mask)` counts them. A count that a reduction already produced
-    for the same mask is reused, not relaunched."""
+    for the same mask is reused, not relaunched, and `contrib` makes one
+    mask per pair of live and validity masks, so two aggregates of one
+    column share it."""
 
     def __init__(self):
         self._counts: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._masks: List[Tuple[torch.Tensor, torch.Tensor,
+                                torch.Tensor]] = []
+
+    def contrib(self, live: torch.Tensor,
+                valid: Optional[torch.Tensor]) -> torch.Tensor:
+        if valid is None:
+            return live
+        for lv, vm, c in self._masks:
+            if lv is live and vm is valid:
+                return c
+        c = live & valid
+        self._masks.append((live, valid, c))
+        return c
 
     def count(self, mask: torch.Tensor) -> torch.Tensor:
         for m, c in self._counts:
@@ -176,17 +191,29 @@ class _Reductions:
 
 
 class _Scalar(_Reductions):
-    """Keyless: one group; K1 gives sum, min, max and count at once."""
+    """Keyless: one group; K1 gives sum, min, max and count at once.
+    `scratch` is K1's scratch for a CUDA graph (ops/fused.py); None
+    takes the stream's."""
+
+    def __init__(self, scratch: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.scratch = scratch
+        self._stats: List[tuple] = []
 
     def _count(self, mask):
         return mask.sum(dtype=torch.int64).reshape(1)
 
     def _k1(self, v, contrib):
         # K1 takes the column in its own dtype; min and max come back in
-        # it, the sum in float64 or int64
-        s, lo, hi, cnt = masked_stats(v, contrib)
+        # it, the sum in float64 or int64; one call serves every
+        # reduction of the same column and mask (SUM and MAX of one)
+        for pv, pc, res in self._stats:
+            if pv is v and pc is contrib:
+                return res
+        s, lo, hi, cnt = masked_stats(v, contrib, self.scratch)
         if all(m is not contrib for m, _ in self._counts):
             self._counts.append((contrib, cnt))
+        self._stats.append((v, contrib, (s, lo, hi)))
         return s, lo, hi
 
     def sum(self, v, contrib):
@@ -515,7 +542,7 @@ def _agg_state(a: AggExpr, ev: DeviceEvaluator, live: torch.Tensor,
     if fn is AggFn.COUNT_STAR:
         return [(red.count(live), None)]
     cv, cm = ev.evaluate(a.child)
-    contrib = live if cm is None else live & cm
+    contrib = red.contrib(live, cm)
     if fn is AggFn.COUNT:
         return [(red.count(contrib), None)]
     if fn in (AggFn.SUM, AggFn.AVG):
@@ -546,7 +573,7 @@ def _merge_states(a: AggExpr, states, live: torch.Tensor, red: _Reductions,
     """FINAL: merge PARTIAL state columns into the result column."""
     fn = a.fn
     v, m = states[0]
-    contrib = live if m is None else live & m
+    contrib = red.contrib(live, m)
     if fn in (AggFn.COUNT, AggFn.COUNT_STAR):
         return [(red.sum(v, live), None)]
     if fn is AggFn.SUM:

@@ -21,7 +21,11 @@ memset or second launch is needed. The partials and the ticket live in
 a scratch that is zeroed once and kept for each (device, stream): two
 streams never share a ticket, and nothing but the 32-byte result is
 allocated per call, as a CUDA graph needs. A failed launch may leave
-the ticket set, so its stream's scratch is dropped and made anew.
+the ticket set, so its stream's scratch is dropped and made anew. A
+CUDA graph passes a scratch of its own (`new_scratch`): the graph
+replays on whatever stream its caller is on, so it cannot rely on the
+capturing stream's. A launch captured in a graph counts once at each
+replay (runtime/dispatch.launched), not at capture.
 
 Results follow the JAX keyless-aggregate path, not the Pallas kernel's
 f32 partials: the sum is float64 for float input and int64 (two's-
@@ -77,12 +81,14 @@ def sum_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype.is_floating_point else torch.int64
 
 
-def masked_stats(values: torch.Tensor, mask: torch.Tensor) -> Stats:
+def masked_stats(values: torch.Tensor, mask: torch.Tensor,
+                 scratch: Optional[torch.Tensor] = None) -> Stats:
     """(sum, min, max, count) over rows where mask != 0.
 
     `values`: 1-D bool/int8/int16/int32/int64/float32/float64; `mask`:
     bool or uint8 of the same length, any nonzero byte kept. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel, with the
+    caller's `scratch` (from `new_scratch`) or the current stream's."""
     if values.dtype not in _ENTRIES:
         raise TypeError(f"masked_stats: unsupported dtype {values.dtype}")
     if mask.dtype not in (torch.bool, torch.uint8):
@@ -98,7 +104,13 @@ def masked_stats(values: torch.Tensor, mask: torch.Tensor) -> Stats:
         raise ValueError(
             f"masked_stats: values on {values.device}, mask on "
             f"{mask.device}")
-    return _launch(values.contiguous(), mask.contiguous())
+    return _launch(values.contiguous(), mask.contiguous(), None, scratch)
+
+
+def new_scratch(device: torch.device) -> torch.Tensor:
+    """A zeroed scratch that one caller (a CUDA graph) keeps for itself:
+    no other launch shares its ticket."""
+    return torch.zeros(_SCRATCH_WORDS, dtype=torch.int64, device=device)
 
 
 def grid(n: int, itemsize: int, sms: int) -> int:
@@ -134,21 +146,28 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    dispatch.record("launch.masked_stats")
+
+
 def _launch(values: torch.Tensor, mask: torch.Tensor,
-            nblocks: Optional[int] = None) -> Stats:
+            nblocks: Optional[int] = None,
+            scratch: Optional[torch.Tensor] = None) -> Stats:
     """Launch the kernel on the current stream; `nblocks` forces the
-    grid (to check it at any grid), where None takes `grid`."""
+    grid (to check it at any grid), where None takes `grid`; `scratch`
+    None takes the stream's."""
     from blaze_tpu_torch.ops.kernels import _build
 
-    global LAUNCHES
     fn = _entry(values.dtype)
     dev = values.device
     stream = _build.stream(dev)
-    key = (dev.index, stream)
-    scratch = _scratch.get(key)
-    if scratch is None:
-        scratch = _scratch[key] = torch.zeros(
-            _SCRATCH_WORDS, dtype=torch.int64, device=dev)
+    key = (dev.index, stream) if scratch is None else None
+    if key is not None:
+        scratch = _scratch.get(key)
+        if scratch is None:
+            scratch = _scratch[key] = new_scratch(dev)
     n = values.numel()
     if nblocks is None:
         nblocks = grid(n, values.element_size(), _build.sm_count(dev))
@@ -156,10 +175,10 @@ def _launch(values: torch.Tensor, mask: torch.Tensor,
     err = fn(values.data_ptr(), mask.data_ptr(), n, nblocks,
              scratch.data_ptr(), buf.data_ptr(), stream)
     if err != 0:
-        del _scratch[key]
+        if key is not None:
+            del _scratch[key]
         _build.check(err, "masked_stats")
-    LAUNCHES += 1
-    dispatch.record("launch.masked_stats")
+    dispatch.launched(_count)
     return result_views(buf, values.dtype)
 
 

@@ -5,7 +5,9 @@ driven by per-partition FileGroups (from_proto.rs:202-212; Spark side
 NativeParquetScanExec.scala:61-107 builds the groups/projection/filters).
 
 Parquet decode is host work (pyarrow's C++ reader) producing record
-batches of `batch_size` rows, each padded and copied to the device once.
+batches of `batch_size` rows, each padded and packed on the host into a
+pinned staging buffer and copied to the device in one transfer
+(batch.PackedColumnBatch, runtime/pack.py).
 Decode and copy run on a prefetch thread (runtime/prefetch.py) ahead of
 the device compute. Row-group pruning evaluates the pruning predicate
 against row-group statistics before any IO, and byte ranges in a
@@ -21,7 +23,7 @@ import dataclasses
 from typing import Iterator, List, Optional, Sequence
 
 from blaze_tpu_torch.types import Schema, from_arrow_schema
-from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.batch import ColumnBatch, PackedColumnBatch
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 
@@ -94,10 +96,12 @@ class ParquetScanExec(PhysicalOp):
         import pyarrow.parquet as pq
 
         from blaze_tpu_torch.io.object_store import store_for
+        from blaze_tpu_torch.runtime.pack import Staging
         from blaze_tpu_torch.runtime.prefetch import prefetch
 
         cfg = ctx.config
         cols = self.projection or [f.name for f in self._schema]
+        staging = Staging() if ctx.device.type == "cuda" else None
 
         def decode() -> Iterator[ColumnBatch]:
             for fr in self.file_groups[partition]:
@@ -113,7 +117,8 @@ class ParquetScanExec(PhysicalOp):
                     ctx.metrics.add("input_batches", 1)
                     if rb.num_rows == 0:
                         continue
-                    yield ColumnBatch.from_arrow(rb, device=ctx.device)
+                    yield PackedColumnBatch.from_arrow(
+                        rb, device=ctx.device, staging=staging)
 
         # overlap parquet decode + H2D with downstream device compute
         yield from prefetch(decode(), depth=2)

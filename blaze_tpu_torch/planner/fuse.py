@@ -1,0 +1,78 @@
+"""Plan-level fusion pass: operator chains -> one CUDA graph replay per
+batch.
+
+Counterpart of the JAX package's planner/fuse.py (`fuse_pipelines`),
+restricted to the nodes the port has. It walks a physical plan top
+down and rewrites:
+
+- a stateless Filter/Project chain of two or more stages into a
+  `FusedPipelineExec` (ops/fused.py);
+- a keyless PARTIAL aggregate into a `FusedAggregateExec` over its
+  chain (one state row for the stream, from the keyless carry);
+- a keyless COMPLETE aggregate into that carry plus a
+  `HostFinalAggExec`, as the JAX package's COMPLETE rewrite does;
+- a keyed aggregate keeps its `HashAggregateExec` over a
+  `FusedPipelineExec` of its chain: grouping syncs with the host
+  (`d2h_syncs.group_branch`, `.insert_round`, `.n_groups`), so a keyed
+  batch is not one graph yet (ROADMAP 'Modules to port' item 1, the
+  grouped carry). So does a keyless aggregate with FIRST or LAST,
+  whose states do not merge in a carry.
+
+Every other node is left in place with its children rewritten; nodes
+the port does not have (joins, windows) do not reach this pass.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+from blaze_tpu_torch.ops.base import PhysicalOp
+from blaze_tpu_torch.ops.filter import FilterExec
+from blaze_tpu_torch.ops.project import ProjectExec
+
+
+def _collect_chain(op: PhysicalOp) -> Tuple[List[PhysicalOp], PhysicalOp]:
+    """The longest fusable Filter/Project chain from `op` down, top
+    first, and the node below it."""
+    from blaze_tpu_torch.ops.fused import stage_needs_host
+
+    chain: List[PhysicalOp] = []
+    t = op
+    while isinstance(t, (FilterExec, ProjectExec)) \
+            and not stage_needs_host(t):
+        chain.append(t)
+        t = t.children[0]
+    return chain, t
+
+
+def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
+    from blaze_tpu_torch.ops.fused import (
+        FusedAggregateExec,
+        FusedPipelineExec,
+        HostFinalAggExec,
+        keyless_merge_plan,
+    )
+    from blaze_tpu_torch.ops.hash_aggregate import AggMode, HashAggregateExec
+
+    if isinstance(op, HashAggregateExec) and \
+            op.mode in (AggMode.PARTIAL, AggMode.COMPLETE):
+        chain, leaf = _collect_chain(op.children[0])
+        if not op.keys and keyless_merge_plan(op.aggs) is not None:
+            pipeline = FusedPipelineExec(fuse_pipelines(leaf),
+                                         list(reversed(chain)))
+            partial = HashAggregateExec(pipeline, keys=[],
+                                        aggs=list(op.aggs),
+                                        mode=AggMode.PARTIAL)
+            if op.mode is AggMode.PARTIAL:
+                return FusedAggregateExec(pipeline, partial)
+            return HostFinalAggExec(
+                FusedAggregateExec(pipeline, partial, fetch_host=True), op)
+        if chain:
+            op.children = [FusedPipelineExec(fuse_pipelines(leaf),
+                                             list(reversed(chain)))]
+            return op
+    chain, t = _collect_chain(op)
+    if len(chain) >= 2:
+        return FusedPipelineExec(fuse_pipelines(t), list(reversed(chain)))
+    op.children = [fuse_pipelines(c) for c in op.children]
+    return op

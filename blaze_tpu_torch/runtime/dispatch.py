@@ -15,13 +15,24 @@ Keys in use:
   `d2h_syncs.insert_round` (one per probe round of the hash table's
   insert loop), `d2h_syncs.group_branch` (direct or hashed slots) and
   `d2h_syncs.n_groups` (the group-capacity ladder);
-- `launch.<kernel>`: launches of a hand-written kernel (ops/kernels).
+- `launch.<kernel>`: launches of a hand-written kernel (ops/kernels);
+  a launch inside a CUDA graph counts at each replay (`launched`);
+- `graph_captures`, `graph_replays`: CUDA graphs captured and replayed
+  by the fused operators (ops/fused.py); `graph_eager_batches`: batches
+  a fused operator ran op by op instead, because the plan or the batch
+  rules a graph out (a CPU device, a batch not packed by the scan).
+
+It also keeps the fused operators' CUDA graphs (`GraphCache`), the
+counterpart of the JAX package's `cached_kernel`
+(blaze_tpu/runtime/dispatch.py): one captured graph per stage structure
+and batch layout, replayed for every batch that has them.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 _lock = threading.Lock()
 _counts: Dict[str, int] = {}
@@ -74,3 +85,103 @@ def host_bool(x, what: Optional[str] = None) -> bool:
     """Blocking readback of a device bool, counted as host_int."""
     _sync(what)
     return bool(x)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+_tls = threading.local()
+
+
+def launched(count: Callable[[], None]) -> None:
+    """A kernel wrapper reports one launch: `count()` adds it to the
+    wrapper's count now or, while this thread captures a CUDA graph, at
+    each replay of that graph (a capture runs nothing on the card)."""
+    pending = getattr(_tls, "capture", None)
+    if pending is None:
+        count()
+    else:
+        pending.append(count)
+
+
+class Graph:
+    """A captured CUDA graph with its static tensors. `replay()` runs it
+    on the current stream and counts the kernel launches it holds."""
+
+    def __init__(self, graph, launches: List[Callable[[], None]], **static):
+        self.graph = graph
+        self.launches = launches
+        self.__dict__.update(static)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        record("graph_replays")
+        for count in self.launches:
+            count()
+
+
+def capture(fn: Callable[[], object], device,
+            prepare: Optional[Callable[[object], None]] = None) -> tuple:
+    """(torch.cuda.CUDAGraph, fn's result inside it, its launch counts):
+    fn runs once eagerly on a side stream (first-use set-up stays out of
+    the graph), `prepare` (if given) gets that warm-up result on the
+    caller's stream - where a caller sizes the graph's output tensors -
+    then fn is captured on the side stream. The capture checks only
+    this thread's calls: the scan's prefetch thread keeps copying on
+    the default stream meanwhile. A failure raises; no caller falls
+    back to running eagerly."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if prepare is not None:
+        prepare(warm)
+    del warm
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    launches: List[Callable[[], None]] = []
+    _tls.capture = launches
+    try:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        _tls.capture = None
+    record("graph_captures")
+    return graph, out, launches
+
+
+class GraphCache:
+    """Captured graphs by key, each lent to one caller at a time: a
+    graph's static tensors belong to the batch it is replaying, so two
+    tasks with one key each get a graph of their own. At most
+    `max_keys` keys are kept, the least recently used dropped first."""
+
+    def __init__(self, max_keys: int = 32):
+        self.max_keys = max_keys
+        self._free: "collections.OrderedDict[tuple, List[Graph]]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def acquire(self, key: tuple, build: Callable[[], Graph]) -> Graph:
+        with self._lock:
+            free = self._free.get(key)
+            if free:
+                self._free.move_to_end(key)
+                return free.pop()
+        return build()
+
+    def release(self, key: tuple, g: Graph) -> None:
+        with self._lock:
+            self._free.setdefault(key, []).append(g)
+            self._free.move_to_end(key)
+            while len(self._free) > self.max_keys:
+                self._free.popitem(last=False)
+
+
+#: the process's graph cache (ops/fused.py)
+GRAPHS = GraphCache()

@@ -2,10 +2,11 @@
 
 Reference counterpart: the JNI entry `callNative` (exec.rs:118-328) -
 decode a TaskDefinition, build the operator tree, execute one partition,
-stream Arrow batches back, then push collected metrics. The decoded tree
-runs operator by operator, eagerly, on the context's device ("cuda"
-unless the caller asks for the CPU). There is no fusion pass and no
-mesh lowering in this slice (ROADMAP 'Modules to port' items 1 and 7).
+stream Arrow batches back, then push collected metrics. Every decoded
+tree goes through the fusion pass (`prepare_decoded_task`, as the JAX
+package's does), and runs on the context's device ("cuda" unless the
+caller asks for the CPU). There is no mesh lowering and no scan hints
+in this slice (ROADMAP 'Modules to port' items 7 and 2).
 
 Failure semantics follow the reference (SURVEY 5.3): operator errors are
 wrapped with task context into TaskExecutionError and propagate cleanly to
@@ -53,18 +54,27 @@ def require_device(device: torch.device) -> None:
         )
 
 
-def decode_task(task_bytes: bytes, ctx: ExecContext):
-    """Decode TaskDefinition bytes into a runnable (op, partition) pair
-    and install the task's identity and file resources into the
-    context."""
-    from blaze_tpu_torch.plan.serde import task_from_proto
+def prepare_decoded_task(decoded, ctx: ExecContext):
+    """Fuse a decoded tree (planner/fuse.py: the JAX package's
+    `prepare_decoded_task` fuses every decoded task the same way) and
+    install the task's identity and file resources into the context."""
+    from blaze_tpu_torch.planner.fuse import fuse_pipelines
 
-    op, partition, task_id, resources = task_from_proto(task_bytes)
+    op, partition, task_id, resources = decoded
+    op = fuse_pipelines(op)
     ctx.partition_id = partition
     ctx.task_id = task_id
     for rid, provider in resources.items():
         ctx.resources.setdefault(rid, provider)
     return op, partition
+
+
+def decode_task(task_bytes: bytes, ctx: ExecContext):
+    """Decode TaskDefinition bytes into a runnable, fused (op,
+    partition) pair."""
+    from blaze_tpu_torch.plan.serde import task_from_proto
+
+    return prepare_decoded_task(task_from_proto(task_bytes), ctx)
 
 
 def execute_task(task_bytes: bytes,

@@ -7,10 +7,11 @@ consumer, bounded by a small queue, so host decode overlaps device
 compute.
 
 Stream ordering: neither thread sets a CUDA stream, so both issue on
-the device's default stream, and batch.from_arrow's copies from
-pageable host memory are blocking. A batch is therefore resident on the
-device, in stream order ahead of any kernel the consumer launches on
-it, before it enters the queue.
+the device's default stream. A batch's copy (blocking from pageable
+memory in batch.from_arrow, non_blocking from pinned staging in
+runtime/pack.put_packed) is enqueued before the batch enters the queue,
+so it lands in stream order ahead of any kernel the consumer launches
+on it.
 """
 
 from __future__ import annotations

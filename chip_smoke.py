@@ -2,10 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port (`blaze_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py            # the full run: 16,777,216 parquet rows
-                                     # (q6, select, exchange_agg, grace),
-                                     # 4,194,304 (grouped, repartition)
+                                     # (q6, select, expr_chain,
+                                     # exchange_agg, grace), 4,194,304
+                                     # (grouped, repartition)
     python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
-    python3 chip_smoke.py --compare DIR   # K1, K2 and K3 of another
+    python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6 and
+                                          # select tasks of another
                                           # checkout against this one,
                                           # timed
 
@@ -46,12 +48,27 @@ Phases, one JSON line each:
    has none, and torch.sum over the unmasked column is its yardstick),
    K1's device time at forced grids, and the device operations one K1,
    K2 or K3 call puts on the card (torch.profiler).
+3b. graphs: the fused keyless aggregate's CUDA graph (q6's filter and
+   project, SUM/COUNT(*)/MIN/MAX/AVG) replayed on 1000 fresh packed
+   batches (NaN, +/-0.0, +/-inf among the prices), its carry equal to
+   the eager run's bit for bit after every replay; then a short batch
+   (10,000 live rows of 16,384) through the same graph; a stream of
+   16,384- and 3000-row batches (two layouts, the carry moved between
+   two graphs) against the same batches run op by op; then K1 captured
+   in two graphs, each with its own scratch, replayed 20 times on two
+   streams at once at 2^24 rows, equal to the eager call bit for bit.
 4. path: a zstd parquet file of `--rows` rows (TPC-DS store_sales-shaped
    item/qty/price, as in bench.py) goes through the port's
-   `execute_task` on cuda twice: the q6 task (filter, project, keyless
-   SUM/COUNT(*)) against a numpy oracle, and the select task (the same
-   filter and project, compacted per batch) against pyarrow's
-   filter/multiply, row for row. Then a file of `--grouped-rows` rows
+   `execute_task` on cuda three times: the q6 task (filter, project,
+   keyless SUM/COUNT(*)) against a numpy oracle, the select task (the
+   same filter and project, compacted per batch) against pyarrow's
+   filter/multiply, row for row, and the expr_chain task (bench.py's
+   ln(price * qty + 1) * sqrt(abs(price - 50)), keyless SUM/MAX) against
+   bench.py's expr_cpu_numpy within 1e-4 and a numpy oracle in the
+   plan's own types (SUM within 1e-9 relative, MAX within 4 ulp). Every
+   decoded task is fused: q6 and expr_chain must replay one CUDA graph
+   and make one H2D copy per batch, with no batch run op by op (their
+   `fusion` counters). Then a file of `--grouped-rows` rows
    goes through the grouped task (project g = item % 4096, keyed
    COMPLETE SUM/MIN/MAX(price), AVG(qty); bench.py's grouped_agg) and
    through its map-side form (a PARTIAL task, then FINAL over its state
@@ -85,7 +102,9 @@ is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 This script imports neither jax nor the JAX package.
 
 --compare DIR times, in the order DIR, this checkout, this checkout,
-DIR (one process each), the keyless aggregate's SUM and MIN as
+DIR (one process each), the q6 and select tasks over one `--rows`
+parquet file (three walls each, the fusion counters and a profiled
+run), the keyless aggregate's SUM and MIN as
 `_Scalar` makes them (K1 and whatever the checkout does around it, such
 as a widening pass) and K1 alone, for a float32 and an int16 column at
 16,384 and 2^24 rows; the grouped aggregate's keyed reductions as
@@ -633,8 +652,8 @@ def time_k1(torch, stats, rng, n: int, dtype=np.float32):
     written once. No PyTorch call gives all four results; the yardstick
     is torch.sum(v, dtype=float64) over the same unmasked column, which
     reads fewer bytes than K1 does."""
-    if dtype == np.float32:
-        v_np = (rng.random(n) * 100).astype(np.float32)
+    if np.dtype(dtype).kind == "f":
+        v_np = (rng.random(n) * 100).astype(dtype)
     else:
         v_np = rng.integers(-2 ** 15, 2 ** 15, n).astype(dtype)
     v = torch.from_numpy(v_np).cuda()
@@ -952,6 +971,215 @@ def q6_plan(scan, aggregate: bool):
     )
 
 
+def expr_chain_plan(scan):
+    """bench.py's expr_chain (bench.py:1141-1157) on the port's
+    operators: ln(price * qty + 1) * sqrt(abs(price - 50)) as float64,
+    then keyless SUM and MAX."""
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col, Literal, \
+        ScalarFn
+    from blaze_tpu_torch.ops import AggMode, HashAggregateExec, ProjectExec
+    from blaze_tpu_torch.types import DataType
+
+    f32 = DataType.float32()
+    rev = Col("price") * Col("qty").cast(f32)
+    score = ScalarFn("ln", (rev + Literal(1.0, f32),)) * ScalarFn(
+        "sqrt", (ScalarFn("abs", (Col("price") - Literal(50.0, f32),)),))
+    return HashAggregateExec(
+        ProjectExec(scan, [(score.cast(DataType.float64()), "sc")]),
+        keys=[], aggs=[(AggExpr(AggFn.SUM, Col("sc")), "s"),
+                       (AggExpr(AggFn.MAX, Col("sc")), "m")],
+        mode=AggMode.COMPLETE)
+
+
+def expr_chain_oracles(qty, price):
+    """((sum, max), (sum, max)): bench.py's expr_cpu_numpy
+    (bench.py:1164-1169), and numpy in the plan's own types - rev and
+    +1 in float32, ln and sqrt of the float32 values widened to float64,
+    abs(price - 50) in float32, the product in float64."""
+    r = price * qty.astype(np.float32)
+    bench = (np.log(r + np.float32(1.0))
+             * np.sqrt(np.abs(price - np.float32(50.0)))).astype(np.float64)
+    typed = (np.log((r + np.float32(1.0)).astype(np.float64))
+             * np.sqrt(np.abs(price - np.float32(50.0)).astype(np.float64)))
+    return ((float(bench.sum()), float(bench.max())),
+            (float(typed.sum()), float(typed.max())))
+
+
+def ulps(a: float, b: float) -> int:
+    ia, ib = (int(np.array([v], np.float64).view(np.int64)[0])
+              for v in (a, b))
+    return abs(ia - ib)
+
+
+def fusion_counts(transfers, rows: int):
+    """Per-task fusion counters: scan batches, graph captures and
+    replays, batches run op by op, H2D copies per batch."""
+    batches = -(-rows // 16384)
+    h2d = transfers.get("h2d_copies", 0)
+    return {"batches": batches,
+            "graph_captures": transfers.get("graph_captures", 0),
+            "graph_replays": transfers.get("graph_replays", 0),
+            "graph_eager_batches": transfers.get("graph_eager_batches", 0),
+            "h2d_copies": h2d, "h2d_per_batch": h2d / batches,
+            "d2h_fetches": transfers.get("d2h_fetches", 0)}
+
+
+def check_fused(task: str, counts) -> None:
+    """A fused keyless task: one graph replay and one H2D copy a batch,
+    no batch run op by op."""
+    n = counts["batches"]
+    if (counts["graph_replays"] != n or counts["h2d_copies"] != n
+            or counts["graph_eager_batches"] != 0):
+        raise AssertionError(f"{task}: {counts} - expected {n} graph "
+                             f"replays, {n} H2D copies, no eager batch")
+
+
+# ---------------------------------------------------------------------------
+# the graph phase: CUDA graphs of the fused keyless aggregate
+# ---------------------------------------------------------------------------
+
+def graph_plan(scan):
+    """q6's filter and project with every mergeable keyless state:
+    SUM, COUNT(*), MIN, MAX and AVG of rev."""
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col
+    from blaze_tpu_torch.ops import AggMode, HashAggregateExec
+
+    return HashAggregateExec(
+        q6_plan(scan, False), keys=[],
+        aggs=[(AggExpr(AggFn.SUM, Col("rev")), "s"),
+              (AggExpr(AggFn.COUNT_STAR, None), "n"),
+              (AggExpr(AggFn.MIN, Col("rev")), "lo"),
+              (AggExpr(AggFn.MAX, Col("rev")), "hi"),
+              (AggExpr(AggFn.AVG, Col("rev")), "avg")],
+        mode=AggMode.COMPLETE)
+
+
+def graph_batch(torch, rng, rows: int, staging):
+    """A fresh packed batch of store_sales rows on the card, with NaN,
+    +/-0.0 and +/-inf among the prices."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.batch import PackedColumnBatch
+
+    item, qty, price = store_sales_columns(rows, int(rng.integers(1 << 30)))
+    special = rng.integers(0, rows, 8)
+    price[special] = [np.nan, -0.0, 0.0, np.inf, -np.inf, 51.0, -51.0,
+                      np.nan][:len(special)]
+    rb = pa.record_batch({"item": item, "qty": qty, "price": price})
+    return PackedColumnBatch.from_arrow(rb, device="cuda", staging=staging)
+
+
+def graph_phase(torch, stats, rng, replays: int = 1000):
+    """The fused keyless aggregate's graph against its eager run, bit
+    for bit: one graph replayed on `replays` fresh batches, its carry
+    accumulating (compared after every replay), then a short batch
+    (10,000 live rows of 16,384) through the same graph; a stream of
+    two layouts through FusedAggregateExec.execute (its carry moved
+    between two graphs) against the same batches run op by op; K1
+    captured in two graphs, each with its own scratch, replayed on two
+    streams at once at 2^24 rows (its multi-block path: the ticket),
+    against the eager call."""
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.ops import MemoryScanExec
+    from blaze_tpu_torch.ops.fused import _Carry
+    from blaze_tpu_torch.ops.project import batch_cvs
+    from blaze_tpu_torch.planner.fuse import fuse_pipelines
+    from blaze_tpu_torch.runtime import dispatch
+    from blaze_tpu_torch.runtime.pack import Staging
+
+    staging = Staging()
+    first = graph_batch(torch, rng, 16384, staging)
+    fused = fuse_pipelines(graph_plan(MemoryScanExec([[]], first.schema))
+                           ).children[0]
+    g = fused._capture(first)
+    eager = _Carry(fused.agg.schema, first.device)
+
+    def step(cb: ColumnBatch) -> None:
+        g.inp.copy_(cb.buf)
+        g.replay()
+        cols, sel = fused.pipeline.run(batch_cvs(cb), cb.capacity,
+                                       cb.device, None)
+        eager.merge(fused.plan, fused._states(
+            cols, cb.capacity, cb.device, cb.live_mask() & sel))
+        if not torch.equal(g.carry.buf, eager.buf):
+            raise AssertionError("graph: the replayed carry differs from "
+                                 "the eager one")
+
+    g.carry.buf.zero_()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        step(graph_batch(torch, rng, 16384, staging))
+    short = graph_batch(torch, rng, 10000, staging)
+    if short.key != first.key:
+        raise AssertionError("graph: the short batch has another layout")
+    step(short)
+    carry_s = time.perf_counter() - t0
+    # a stream whose layout changes (16,384- and 4096-row capacities):
+    # the carry moves between two graphs; against the same batches run
+    # op by op (plain batches take no graph)
+    from blaze_tpu_torch.ops.base import ExecContext
+
+    mixed = [graph_batch(torch, rng, n, staging)
+             for n in (16384, 3000, 16384, 3000)]
+
+    def states(batches):
+        fused.children = [MemoryScanExec([batches], first.schema)]
+        with dispatch.counting() as c:
+            (out,) = fused.execute(0, ExecContext(device="cuda"))
+        return out, c.counts
+
+    graphed, gc = states(mixed)
+    eager_out, ec = states([ColumnBatch(b.schema, b.columns, b.num_rows)
+                            for b in mixed])
+    if gc.get("graph_replays") != 4 or ec.get("graph_eager_batches") != 4:
+        raise AssertionError(f"graph: mixed stream counts {gc} / {ec}")
+    for g_col, e_col in zip(graphed.columns, eager_out.columns):
+        for gt, et in ((g_col.values, e_col.values),
+                       (g_col.validity, e_col.validity)):
+            if (gt is None) != (et is None) or (gt is not None and not
+                                                torch.equal(gt.view(
+                                                    torch.uint8),
+                                                    et.view(torch.uint8))):
+                raise AssertionError("graph: the carry moved between "
+                                     "graphs differs from the eager run")
+    # K1 in two graphs on two streams
+    n = 1 << 24
+    v = torch.from_numpy(rng.random(n) * 100).cuda()
+    m = torch.from_numpy(rng.random(n) < 0.5).cuda()
+    exp = torch.cat([t.view(torch.uint8) for t in stats.masked_stats(v, m)])
+    graphs = []
+    for _ in range(2):
+        scratch = stats.new_scratch(v.device)
+        graph, out, launches = dispatch.capture(
+            lambda scratch=scratch: stats.masked_stats(v, m, scratch),
+            v.device)
+        graphs.append(dispatch.Graph(graph, launches, out=out,
+                                     scratch=scratch))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    rounds = 20
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for gr, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                gr.replay()
+        torch.cuda.synchronize()
+        for gr in graphs:
+            got = torch.cat([t.view(torch.uint8) for t in gr.out])
+            if not torch.equal(got, exp):
+                raise AssertionError("graph: K1 replayed on two streams "
+                                     "differs from the eager call")
+    emit({"phase": "graphs", "carry_replays": replays + 1,
+          "carry_bit_equal": True, "short_batch_live_rows": 10000,
+          "mixed_layout_stream": {"rows": [16384, 3000, 16384, 3000],
+                                  "graph_captures":
+                                      gc.get("graph_captures", 0),
+                                  "bit_equal_to_eager": True},
+          "carry_seconds": carry_s, "k1_two_stream_rounds": rounds,
+          "k1_rows": n, "k1_bit_equal": True,
+          "k1_grid_blocks": stats.grid(n, 8, torch.cuda.get_device_properties(
+              0).multi_processor_count)})
+
+
 # the shape of a launch, from the arguments of each wrapper module's
 # `_launch`: rows for K1 and K2, (rows, segments) for K3 (every case of
 # check_k3 runs at each)
@@ -1079,25 +1307,20 @@ def path_phase(torch, rows: int, seed: int, kernels):
         blob = task_to_proto(
             q6_plan(ParquetScanExec([[FileRange(path)]]), True), 0)
         out, wall, launches, transfers = run_task(torch, blob, kernels)
-        live = (price > np.float32(50.0)) & (qty < 8)
-        rev = np.where(live, price * qty.astype(np.float32),
-                       np.float32(0))
-        exp_sum = float(rev.sum(dtype=np.float64))
-        exp_n = int(live.sum())
-        got_sum = out[0].column(0)[0].as_py()
-        got_n = out[0].column(1)[0].as_py()
-        if got_n != exp_n or abs(got_sum - exp_sum) > 1e-9 * abs(exp_sum):
-            raise AssertionError(
-                f"q6: got ({got_sum}, {got_n}), numpy ({exp_sum}, {exp_n})")
+        exp_sum, _ = q6_oracle(qty, price)
+        got_sum, got_n = check_q6(out, qty, price, "q6")
         if launches["masked_stats"] <= 0:
             raise AssertionError("q6 did not launch K1 masked_stats")
+        fusion = fusion_counts(transfers, rows)
+        check_fused("q6", fusion)
         results["q6"] = {"launches": launches, "wall_s": wall}
         emit({"phase": "path", "task": "q6", "rows": rows,
               "parquet_write_s": write_s, "wall_s": wall,
               "rows_per_s": rows / wall,
               "sum": got_sum, "count": got_n, "numpy_sum": exp_sum,
               "rel_err": abs(got_sum - exp_sum) / max(abs(exp_sum), 1.0),
-              "launches": launches, "transfers": transfers})
+              "launches": launches, "fusion": fusion,
+              "transfers": transfers})
         profile_task(torch, blob, "q6", wall)
 
         # select: filter -> project -> compacted Arrow batches
@@ -1122,11 +1345,100 @@ def path_phase(torch, rows: int, seed: int, kernels):
         emit({"phase": "path", "task": "select", "rows": rows,
               "out_rows": len(got), "batches": len(out), "wall_s": wall,
               "rows_per_s": rows / wall, "launches": launches,
+              "fusion": fusion_counts(transfers, rows),
               "transfers": transfers})
         profile_task(torch, blob, "select", wall)
+
+        # expr_chain: the scalar-function chain -> keyless SUM / MAX
+        blob = task_to_proto(
+            expr_chain_plan(ParquetScanExec([[FileRange(path)]])), 0)
+        out, wall, launches, transfers = run_task(torch, blob, kernels)
+        got_s = out[0].column("s")[0].as_py()
+        got_m = out[0].column("m")[0].as_py()
+        bench, typed = expr_chain_oracles(qty, price)
+        bench_ok = all(abs(g - e) / max(abs(e), 1) < 1e-4
+                       for g, e in zip((got_s, got_m), bench))
+        typed_ok = (abs(got_s - typed[0]) <= 1e-9 * abs(typed[0])
+                    and ulps(got_m, typed[1]) <= 4)
+        if not (bench_ok and typed_ok):
+            raise AssertionError(
+                f"expr_chain: got ({got_s}, {got_m}), bench.py's numpy "
+                f"{bench}, typed numpy {typed}")
+        if launches["masked_stats"] <= 0:
+            raise AssertionError("expr_chain did not launch K1 masked_stats")
+        fusion = fusion_counts(transfers, rows)
+        check_fused("expr_chain", fusion)
+        results["expr_chain"] = {"launches": launches, "wall_s": wall}
+        emit({"phase": "path", "task": "expr_chain", "rows": rows,
+              "wall_s": wall, "rows_per_s": rows / wall,
+              "sum": got_s, "max": got_m, "bench_numpy": bench,
+              "typed_numpy": typed,
+              "sum_rel_err": abs(got_s - typed[0]) / abs(typed[0]),
+              "max_ulps": ulps(got_m, typed[1]),
+              "tolerance": "bench.py's 1e-4; typed numpy: SUM 1e-9 "
+                           "relative, MAX 4 ulp",
+              "launches": launches, "fusion": fusion,
+              "transfers": transfers})
+        profile_task(torch, blob, "expr_chain", wall)
+        column_orders(torch, work, min(rows, 1 << 20), seed + 1, kernels)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return results
+
+
+def q6_oracle(qty, price):
+    """q6's (SUM(rev), COUNT(*)) in numpy."""
+    live = (price > np.float32(50.0)) & (qty < 8)
+    rev = np.where(live, price * qty.astype(np.float32), np.float32(0))
+    return float(rev.sum(dtype=np.float64)), int(live.sum())
+
+
+def check_q6(out, qty, price, task: str):
+    """q6's result row against q6_oracle: COUNT exact, SUM within 1e-9
+    relative; returns (sum, count)."""
+    exp_sum, exp_n = q6_oracle(qty, price)
+    got_sum = out[0].column(0)[0].as_py()
+    got_n = out[0].column(1)[0].as_py()
+    if got_n != exp_n or abs(got_sum - exp_sum) > 1e-9 * abs(exp_sum):
+        raise AssertionError(f"{task}: got ({got_sum}, {got_n}), numpy "
+                             f"({exp_sum}, {exp_n})")
+    return got_sum, got_n
+
+
+def column_orders(torch, work: str, rows: int, seed: int, kernels):
+    """One q6 plan over two files that hold the same columns, item and
+    qty (both int32) swapped: one batch layout, so only the graph key's
+    leaf schema and bound columns keep the tasks' graphs apart. The
+    swapped task captures graphs of its own, the first order's rerun
+    replays its cached ones, and each result matches its own numpy."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.plan.serde import task_to_proto
+
+    item, qty, price = store_sales_columns(rows, seed)
+    files = {"item_qty_price": {"item": item, "qty": qty, "price": price},
+             "qty_item_price": {"qty": qty, "item": item, "price": price}}
+    captures = {}
+    for order in ("item_qty_price", "qty_item_price", "item_qty_price"):
+        path = os.path.join(work, order + ".parquet")
+        if not os.path.exists(path):
+            pq.write_table(pa.table(files[order]), path,
+                           row_group_size=1 << 20)
+        blob = task_to_proto(
+            q6_plan(ParquetScanExec([[FileRange(path)]]), True), 0)
+        out, _, _, transfers = run_task(torch, blob, kernels)
+        check_q6(out, qty, price, "q6 over " + order)
+        captures.setdefault(order, []).append(
+            transfers.get("graph_captures", 0))
+    if captures["qty_item_price"][0] < 1 or captures["item_qty_price"][1]:
+        raise AssertionError(f"column orders: graph captures {captures}: "
+                             "expected new graphs for the swapped order "
+                             "and none for the rerun")
+    emit({"phase": "column_orders", "rows": rows,
+          "orders": list(files), "graph_captures": captures,
+          "each_matches_its_numpy": True})
 
 
 # ---------------------------------------------------------------------------
@@ -1534,7 +1846,7 @@ def exchange_phase(torch, rows: int, seed: int, kernels):
     return results
 
 
-def time_tree(torch, tree: str):
+def time_tree(torch, tree: str, rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -1581,6 +1893,41 @@ def time_tree(torch, tree: str):
         keep = torch.from_numpy(rng.random(n) < 0.5).cuda()
         out[f"compact_perm_{n}"] = timed(lambda: compact.compact_perm(keep))
     emit(out)
+    compare_paths(torch, tree, rows)
+
+
+def compare_paths(torch, tree: str, rows: int, runs: int = 3):
+    """The q6 and select tasks (this script's plans) through the tree's
+    execute_task over one parquet file of `rows` rows: each task's wall
+    `runs` times, its transfer and graph counts, then a profiled run
+    (its own line) for the device calls and busy time."""
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    path = os.path.join(REPO, "build", "chip_smoke_compare",
+                        f"store_sales_{rows}.parquet")
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_store_sales(path + ".tmp", rows, 42)
+        os.replace(path + ".tmp", path)
+    for task, agg in (("q6", True), ("select", False)):
+        blob = task_to_proto(
+            q6_plan(ParquetScanExec([[FileRange(path)]]), agg), 0)
+
+        def run():
+            return list(execute_task(blob, ExecContext(device="cuda")))
+
+        walls = []
+        for _ in range(runs):
+            _, wall, _, transfers = run_counted(torch, run, {})
+            walls.append(wall)
+        emit({"phase": "compare_path", "tree": tree, "task": task,
+              "rows": rows, "walls_s": walls,
+              "fusion": fusion_counts(transfers, rows),
+              "transfers": transfers})
+        profile_run(torch, run, f"{task}@{tree}", statistics.median(walls))
 
 
 def main() -> int:
@@ -1608,14 +1955,15 @@ def main() -> int:
               "(blaze_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     if args.tree:
-        time_tree(torch, args.tree)
+        time_tree(torch, args.tree, args.rows)
         return 0
     smi = smi_line()
     if args.compare:
         print(smi, flush=True)
         for tree in (args.compare, REPO, REPO, args.compare):
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--tree", tree], check=True)
+                            "--tree", tree, "--rows", str(args.rows)],
+                           check=True)
         print(smi_line(), flush=True)
         return 0
     sys.path.insert(0, REPO)
@@ -1681,6 +2029,8 @@ def main() -> int:
           "k1_f64_sum_repeatable": True,
           "k1_int16": [time_k1(torch, stats, rng, n, np.int16)
                        for n in sizes],
+          # expr_chain's K1 shape: a float64 column of 16,384 rows
+          "k1_float64": [time_k1(torch, stats, rng, 16384, np.float64)],
           "k1_grids_device_us": k1_grid_sweep(torch, stats, rng),
           "k2_cases": n2, "k2_sizes": K2_SIZES,
           "k2_forced_grids": {"sizes": K2_GRID_SIZES, "blocks": K2_GRIDS},
@@ -1736,6 +2086,9 @@ def main() -> int:
           "k4_tolerance": "partition ids equal, bit for bit",
           "k4_timings": k4_times, "nvidia_smi": smi,
           "k4_library": "none: no PyTorch call computes Spark's murmur3"})
+
+    # 3b. CUDA graphs of the fused keyless aggregate against its eager run
+    graph_phase(torch, stats, rng)
 
     # 4. the paths, noting the shape of every kernel launch
     kernels = {"masked_stats": stats, "compact_perm": compact,

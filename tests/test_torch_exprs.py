@@ -193,7 +193,8 @@ def test_literal_dtypes_follow_the_ir(batches):
 
 
 @pytest.mark.parametrize("e", [
-    ir.ScalarFn("sqrt", (Col("x"),)),
+    # scalar functions run since item 10; the time-of-day ones wait
+    ir.ScalarFn("hour", (Col("dt"),)),
     ir.Literal("s", DataType.utf8()),
     Col("a").cast(DataType.utf8()),
 ], ids=["scalar_fn", "string_literal", "string_cast"])
