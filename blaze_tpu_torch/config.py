@@ -47,6 +47,12 @@ class EngineConfig:
     ipc_compression_level: int = 1
     # torch device the engine computes on ("cuda", "cuda:1", "cpu").
     device: str = "cuda"
+    # Join core (the JAX package's config.join_core): "scatter" builds
+    # a hash table of the build relation (a dense direct table, a fused
+    # key|row table or the generic table), demoted to the sorted core
+    # when build keys repeat; "sort" always takes the sorted core;
+    # "auto" is "scatter" on every device.
+    join_core: str = "auto"
 
     def bucket_for(self, num_rows: int) -> int:
         for b in self.shape_buckets:
@@ -60,6 +66,15 @@ class EngineConfig:
         d = self.tmp_dirs[0]
         os.makedirs(d, exist_ok=True)
         return d
+
+
+def resolve_join_core(value: str) -> str:
+    """"scatter" or "sort" for a join_core value; unknown values raise,
+    so a mistyped knob cannot silently run the other core."""
+    if value not in ("auto", "scatter", "sort"):
+        raise ValueError(
+            f"join_core must be auto|scatter|sort, got {value!r}")
+    return "sort" if value == "sort" else "scatter"
 
 
 _CONFIG: EngineConfig = EngineConfig()

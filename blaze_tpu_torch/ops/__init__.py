@@ -1,7 +1,8 @@
 """Physical operators of the port: scans, filter, project, the hash
 aggregate (keyless and keyed, with grace execution past its
-materialization limit), and the exchange: the shuffle writer and the IPC
-reader and writer. Operators stream ColumnBatches per partition and
+materialization limit), the equi-joins (broadcast hash join, sort-merge
+join with grace buckets, streaming sort-merge join), and the exchange:
+the shuffle writer and the IPC reader and writer. Operators stream ColumnBatches per partition and
 compute eagerly on the task's device.
 """
 
@@ -18,6 +19,12 @@ from blaze_tpu_torch.ops.ipc_reader import (
     IpcReadMode,
 )
 from blaze_tpu_torch.ops.ipc_writer import IpcWriterExec, collect_ipc
+from blaze_tpu_torch.ops.joins import (
+    HashJoinExec,
+    JoinType,
+    SortMergeJoinExec,
+)
+from blaze_tpu_torch.ops.streaming_smj import StreamingSortMergeJoinExec
 
 __all__ = [
     "ExecContext",
@@ -35,4 +42,8 @@ __all__ = [
     "IpcReadMode",
     "IpcWriterExec",
     "collect_ipc",
+    "HashJoinExec",
+    "JoinType",
+    "SortMergeJoinExec",
+    "StreamingSortMergeJoinExec",
 ]

@@ -1,9 +1,9 @@
-"""Device open-addressing hash table, grouping half: sort-free group
-slots for the keyed hash aggregate.
+"""Device open-addressing hash table: sort-free group slots for the
+keyed hash aggregate and build tables for the equi-joins.
 
-A copy of the grouping half of the JAX package's ops/hash_table.py
-(`table_size_for`, `cheap_hash`, `_tri_slot`, `_pairwise_eq`,
-`_keys_at`, `insert`, `group_slots`) on torch tensors:
+A copy of the JAX package's ops/hash_table.py on torch tensors. The
+grouping half (`table_size_for`, `cheap_hash`, `_tri_slot`,
+`_pairwise_eq`, `_keys_at`, `insert`, `group_slots`):
 
   insert:  every live row hashes to a home slot in a power-of-two table;
            rounds of `scatter_reduce_(slot, row_index, "amin")` claim
@@ -14,18 +14,23 @@ A copy of the grouping half of the JAX package's ops/hash_table.py
   direct:  a single integer key whose live range fits the table takes
            slot = value - min(value), one slot reserved for NULL.
 
+The join half (`probe_table_size`, `key_u32`, `insert_kr`, `lookup_kr`,
+`insert_direct`, `lookup_direct`, `direct_table_size`, `lookup`): the
+build relation of a join inserts into a table - a dense key -> row
+array, a fused key|row table for one narrow key, or the generic row
+table above - and each probe row walks its chain to its build row.
+Every function returns the JAX function's table and `match_idx`.
+
 The hash is bit-exact with the JAX one, so `insert` claims the same
 slots and the aggregate's group order equals the JAX package's row for
 row. torch has no full uint32 arithmetic and its `>>` on int32 is
 arithmetic, so the uint32 mixer runs in int64 on values kept in
-[0, 2^32) and masked after every step.
+[0, 2^32) and masked after every step; for the same reason the fused
+key|row entries are int64 (`insert_kr`).
 
 `lax.while_loop` and `lax.cond` become host control flow: one blocking
 readback per probe round (`active.any()`) and one for the direct-or-hash
-branch, both counted in runtime/dispatch. The join half (`insert_kr`,
-`lookup_kr`, `lookup`, `insert_direct`, `lookup_direct`,
-`probe_table_size`, `key_u32`) waits for ROADMAP 'Modules to port'
-item 4 (joins).
+branch, each counted in runtime/dispatch under its cause.
 """
 
 from __future__ import annotations
@@ -90,6 +95,17 @@ def cheap_hash(key_cols: KeyCols, capacity: int) -> torch.Tensor:
     return acc ^ (acc >> 13)
 
 
+def probe_table_size(capacity: int) -> int:
+    """Table size for join probes: a lookup runs one pass over the probe
+    batch per round until the longest chain resolves, so the load
+    factor multiplies probe cost. 8x the build rows, at most 2^23 slots,
+    and never below `table_size_for` (the JAX package's sizing)."""
+    t = table_size_for(capacity)
+    while t < 8 * capacity and t < (1 << 23):
+        t <<= 1
+    return t
+
+
 def _tri_slot(u0: torch.Tensor, r: int, mask: int) -> torch.Tensor:
     """Probe slot r of the triangular sequence h, h+1, h+3, h+6, ...
     (offsets r(r+1)/2, in uint32 arithmetic as in the JAX package)."""
@@ -125,17 +141,19 @@ def _keys_at(key_cols: KeyCols, idx: torch.Tensor) -> List:
 
 def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
            capacity: int, table_size: int, null_equal: bool,
-           max_rounds: Optional[int] = None):
+           max_rounds: Optional[int] = None, sync: str = "insert_round"):
     """Insert all live rows; equal keys share one slot.
 
     `max_rounds` bounds the probe loop for undersized tables: when it
     trips, the leftover rows surface in `overflow` and the caller
-    re-runs with a larger table.
+    re-runs with a larger table. `sync` names the per-round readback.
 
-    Returns (slot, rep_tab, overflow):
+    Returns (slot, rep_tab, dup, overflow):
       slot     int64[capacity]   resolved slot per row (0 for dead rows)
       rep_tab  int32[table_size] minimum row index owning each slot;
                `capacity` marks an empty slot
+      dup      bool tensor       a live row's key was already present
+               (its representative is another row)
       overflow bool tensor       rows left unresolved by the round bound
     """
     cap = capacity
@@ -147,9 +165,10 @@ def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
     tab = torch.full((table_size,), cap, dtype=torch.int32, device=dev)
     final_slot = torch.zeros(cap, dtype=torch.int64, device=dev)
     active = live.clone()
+    dup = torch.zeros((), dtype=torch.bool, device=dev)
     r = 0
     while (max_rounds is None or r < max_rounds) and \
-            host_bool(active.any(), "insert_round"):
+            host_bool(active.any(), sync):
         slot = _tri_slot(u0, r, mask)
         occupant = torch.index_select(tab, 0, slot)
         # claim only empty slots: occupied slots are immutable, which
@@ -162,10 +181,11 @@ def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
         for (bv, bm), (sv, sm) in zip(_keys_at(key_cols, reps), key_cols):
             ok = ok & _pairwise_eq(sv, sm, bv, bm, null_equal)
         found = active & ok
+        dup = dup | (found & (rep != rowidx)).any()
         final_slot = torch.where(found, slot, final_slot)
         active = active & ~found
         r += 1
-    return final_slot, tab, active.any()
+    return final_slot, tab, dup, active.any()
 
 
 def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
@@ -185,7 +205,9 @@ def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
 
     def hash_insert():
         h = cheap_hash(key_cols, cap)
-        return insert(h, key_cols, live, cap, table_size, True, max_rounds)
+        slot, tab, _dup, overflow = insert(h, key_cols, live, cap,
+                                           table_size, True, max_rounds)
+        return slot, tab, overflow
 
     if not single_int:
         return hash_insert()
@@ -218,3 +240,173 @@ def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
                      device=live.device)
     tab.scatter_reduce_(0, slot, cand, "amin")
     return slot, tab, torch.zeros((), dtype=torch.bool, device=live.device)
+
+
+# ---------------------------------------------------------------------------
+# join half
+# ---------------------------------------------------------------------------
+
+def key_u32(v: torch.Tensor, m) -> Optional[torch.Tensor]:
+    """Exact 32-bit encoding of one narrow join key as int64 in
+    [0, 2^32), or None when the dtype does not fit. Equal encodings are
+    equal SQL keys: float32 -0.0 encodes as +0.0 and every NaN as the
+    canonical quiet NaN (joins match NaN with NaN); integers of at most
+    4 bytes sign-extend to int32 (the JAX package's uint32 view)."""
+    if v.dim() != 1:
+        return None
+    if v.dtype == torch.float32:
+        # float64 is not eligible: narrowing would merge keys distinct
+        # beyond float32 precision, and this encoding is the equality
+        f = torch.where(v == 0.0, torch.zeros_like(v), v)
+        bits = f.view(torch.int32).to(torch.int64) & _M32
+        return torch.where(torch.isnan(f),
+                           torch.full_like(bits, 0x7FC00000), bits)
+    if v.dtype == torch.bool:
+        return v.to(torch.int64)
+    if v.dtype in (torch.int8, torch.int16, torch.int32):
+        return v.to(torch.int64) & _M32
+    return None
+
+
+#: the empty entry of a fused key|row table: above every live entry
+KR_EMPTY = 0x7FFFFFFFFFFFFFFF
+#: rows of a fused key|row table: an entry is key32 << 31 | row, so a
+#: row must stay below 2^31 - 1 for the largest entry,
+#: (2^32 - 1) << 31 | (2^31 - 2), to stay below KR_EMPTY
+KR_MAX_ROWS = (1 << 31) - 1
+_KR_ROW = (1 << 31) - 1
+
+
+def insert_kr(k32: torch.Tensor, h: torch.Tensor, live: torch.Tensor,
+              capacity: int, table_size: int):
+    """Single-narrow-key insert into a fused key|row table: each probe
+    round is one gather and one compare. Returns (tab int64[table_size],
+    dup bool tensor).
+
+    The JAX package's entries are the uint64 key32 << 32 | row under a
+    `.at[].min`; torch's `amin` scatter takes int64, so an entry here is
+    key32 << 31 | row (row < 2^31 - 1, KR_MAX_ROWS): the same order as
+    the JAX entries, so a contested slot goes to the same row (the
+    smallest key, then the smallest row), and KR_EMPTY above it all."""
+    if capacity > KR_MAX_ROWS:
+        raise ValueError(f"insert_kr: {capacity} rows; at most "
+                         f"{KR_MAX_ROWS} fit the key|row entries")
+    dev = live.device
+    mask = table_size - 1
+    rowidx = torch.arange(capacity, dtype=torch.int64, device=dev)
+    entries = (k32 << 31) | rowidx
+    empty = torch.full_like(entries, KR_EMPTY)
+    u0 = h & mask
+    tab = torch.full((table_size,), KR_EMPTY, dtype=torch.int64,
+                     device=dev)
+    active = live.clone()
+    dup = torch.zeros((), dtype=torch.bool, device=dev)
+    r = 0
+    while host_bool(active.any(), "join_insert_round"):
+        slot = _tri_slot(u0, r, mask)
+        occupant = torch.index_select(tab, 0, slot)
+        cand = torch.where(active & (occupant == KR_EMPTY), entries, empty)
+        tab.scatter_reduce_(0, slot, cand, "amin")
+        entry = torch.index_select(tab, 0, slot)
+        found = active & (entry != KR_EMPTY) & ((entry >> 31) == k32)
+        dup = dup | (found & ((entry & _KR_ROW) != rowidx)).any()
+        active = active & ~found
+        r += 1
+    return tab, dup
+
+
+def lookup_kr(tab: torch.Tensor, k32: torch.Tensor, h: torch.Tensor,
+              probe_live: torch.Tensor):
+    """Probe a fused key|row table: one gather and one compare a round.
+    Returns (match_idx int32, -1 where unmatched; matched bool). The
+    JAX package runs the rounds past the second on a compacted tail;
+    every round here runs at full width, which gives the same
+    match_idx."""
+    mask = tab.shape[0] - 1
+    u0 = h & mask
+    active = probe_live
+    match = torch.full(k32.shape, -1, dtype=torch.int32, device=k32.device)
+    r = 0
+    # the first two rounds resolve nearly every probe: no readback
+    # before the third
+    while r < 2 or host_bool(active.any(), "join_probe_round"):
+        slot = _tri_slot(u0, r, mask)
+        entry = torch.index_select(tab, 0, slot)
+        is_empty = entry == KR_EMPTY
+        hit = active & ~is_empty & ((entry >> 31) == k32)
+        match = torch.where(hit, (entry & _KR_ROW).to(torch.int32), match)
+        active = active & ~is_empty & ~hit
+        r += 1
+    return match, match >= 0
+
+
+#: the empty slot of a direct table: row indices stay below INT32_MAX
+DIRECT_EMPTY = 0x7FFFFFFF
+
+
+def insert_direct(keys: torch.Tensor, live: torch.Tensor, capacity: int,
+                  base: int, table_size: int):
+    """Dense-domain dimension table: tab[key - base] = row index (the
+    smallest row of a key). Surrogate keys are near-contiguous ints, so
+    probing is one gather with no hash and no key comparison. Returns
+    (tab int32[table_size], dup bool tensor): dup means two live rows
+    share a key (the caller demotes to the sorted core)."""
+    dev = live.device
+    idx = (keys.to(torch.int64) - base).clamp(0, table_size - 1)
+    rows = torch.arange(capacity, dtype=torch.int32, device=dev)
+    tab = torch.full((table_size,), DIRECT_EMPTY, dtype=torch.int32,
+                     device=dev)
+    tab.scatter_reduce_(
+        0, idx, torch.where(live, rows, torch.full_like(rows, DIRECT_EMPTY)),
+        "amin")
+    rep = torch.index_select(tab, 0, idx)
+    return tab, (live & (rep != rows)).any()
+
+
+def lookup_direct(tab: torch.Tensor, base: int, span: int,
+                  keys: torch.Tensor, probe_live: torch.Tensor):
+    """Probe a dense-domain table: one subtract, a range check and one
+    gather at a clamped index. Returns (match_idx int32, -1 where
+    unmatched; matched bool)."""
+    idx = keys.to(torch.int64) - base
+    in_range = (idx >= 0) & (idx < span)
+    rep = torch.index_select(tab, 0, idx.clamp(0, tab.shape[0] - 1))
+    matched = probe_live & in_range & (rep != DIRECT_EMPTY)
+    return torch.where(matched, rep, torch.full_like(rep, -1)), matched
+
+
+def direct_table_size(span: int) -> int:
+    """Power-of-two table size for a key span, at least 1024."""
+    t = 1024
+    while t < span:
+        t <<= 1
+    return t
+
+
+def lookup(rep_tab: torch.Tensor, h_probe: torch.Tensor,
+           probe_key_cols: KeyCols, build_key_cols: KeyCols,
+           probe_live: torch.Tensor, build_capacity: int,
+           null_equal: bool = False):
+    """Each probe row's build row (the first inserted row of its key),
+    walking the probe chain to the first empty slot. Returns (match_idx
+    int32, -1 where unmatched; matched bool)."""
+    mask = rep_tab.shape[0] - 1
+    u0 = h_probe & mask
+    active = probe_live
+    match = torch.full(h_probe.shape, -1, dtype=torch.int32,
+                       device=h_probe.device)
+    r = 0
+    while r < 2 or host_bool(active.any(), "join_probe_round"):
+        slot = _tri_slot(u0, r, mask)
+        rep = torch.index_select(rep_tab, 0, slot)
+        is_empty = rep == build_capacity
+        reps = rep.clamp(0, build_capacity - 1).to(torch.int64)
+        ok = ~is_empty
+        for (bv, bm), (pv, pm) in zip(_keys_at(build_key_cols, reps),
+                                      probe_key_cols):
+            ok = ok & _pairwise_eq(pv, pm, bv, bm, null_equal)
+        hit = active & ok
+        match = torch.where(hit, rep, match)
+        active = active & ~is_empty & ~hit
+        r += 1
+    return match, match >= 0

@@ -6,11 +6,12 @@ Mirror of the reference's two-sided serde: the Scala builders
 Rust decoder (`TryInto<Arc<dyn ExecutionPlan>>`, from_proto.rs:162-560).
 The wire format is the JAX package's, unchanged: TaskDefinition bytes
 from either package decode in the other. The port carries the
-parquet_scan, ipc_reader, filter, project, hash_aggregate,
-shuffle_writer (hash, single, round_robin) and ipc_writer arms, and a
-task's local file resources (the IpcReader inputs of a reduce task);
-every other plan arm, range partitioning and remote segments raise
-NotImplementedError naming the ROADMAP item that brings them.
+parquet_scan, ipc_reader, filter, project, hash_aggregate, hash_join,
+sort_merge_join (streaming or not), shuffle_writer (hash, single,
+round_robin) and ipc_writer arms, and a task's local file resources
+(the IpcReader inputs of a reduce task); every other plan arm, range
+partitioning and remote segments raise NotImplementedError naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -28,12 +29,18 @@ from blaze_tpu_torch.ops.ipc_reader import (
     IpcReadMode,
 )
 from blaze_tpu_torch.ops.ipc_writer import IpcWriterExec
+from blaze_tpu_torch.ops.joins import (
+    HashJoinExec,
+    JoinType,
+    SortMergeJoinExec,
+)
 from blaze_tpu_torch.ops.parquet_scan import FileRange, ParquetScanExec
 from blaze_tpu_torch.ops.project import ProjectExec
 from blaze_tpu_torch.ops.shuffle_writer import (
     ROADMAP_EXCHANGE,
     ShuffleWriterExec,
 )
+from blaze_tpu_torch.ops.streaming_smj import StreamingSortMergeJoinExec
 
 _ROADMAP_OPS = "ROADMAP 'Modules to port'"
 
@@ -278,6 +285,14 @@ _IPC_TO_PB = {
 }
 _PB_TO_IPC = {v: k for k, v in _IPC_TO_PB.items()}
 
+_JT_TO_PB = {
+    JoinType.INNER: pb.INNER, JoinType.LEFT: pb.LEFT,
+    JoinType.RIGHT: pb.RIGHT, JoinType.FULL: pb.FULL,
+    JoinType.LEFT_SEMI: pb.LEFT_SEMI, JoinType.LEFT_ANTI: pb.LEFT_ANTI,
+    JoinType.LEFT_ANTI_NULL_AWARE: pb.LEFT_ANTI_NULL_AWARE,
+}
+_PB_TO_JT = {v: k for k, v in _JT_TO_PB.items()}
+
 _SHUFFLE_TO_PB = {"hash": pb.HASH, "single": pb.SINGLE,
                   "round_robin": pb.ROUND_ROBIN, "range": pb.RANGE}
 _PB_TO_SHUFFLE = {v: k for k, v in _SHUFFLE_TO_PB.items()}
@@ -330,6 +345,29 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
             aggs=[(expr_from_proto(a.expr), a.name) for a in h.aggs],
             mode=_PB_TO_MODE[h.mode],
         )
+    if kind == "hash_join":
+        h = p.hash_join
+        return HashJoinExec(
+            plan_from_proto(h.left), plan_from_proto(h.right),
+            list(h.left_keys), list(h.right_keys),
+            _PB_TO_JT[h.join_type],
+        )
+    if kind == "sort_merge_join":
+        h = p.sort_merge_join
+        left = plan_from_proto(h.left)
+        right = plan_from_proto(h.right)
+        if h.streaming:
+            try:
+                return StreamingSortMergeJoinExec(
+                    left, right, list(h.left_keys), list(h.right_keys),
+                    _PB_TO_JT[h.join_type],
+                )
+            except NotImplementedError:
+                pass  # keys it cannot stream: the materializing join
+        return SortMergeJoinExec(
+            left, right, list(h.left_keys), list(h.right_keys),
+            _PB_TO_JT[h.join_type],
+        )
     if kind == "shuffle_writer":
         sw = p.shuffle_writer
         return ShuffleWriterExec(
@@ -380,6 +418,12 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
         for a, name in op.aggs:
             h.aggs.add(expr=expr_to_proto(a), name=name)
         h.mode = _MODE_TO_PB[op.mode]
+    elif isinstance(op, HashJoinExec):
+        _join_to_proto(p.hash_join, op)
+    elif isinstance(op, (SortMergeJoinExec, StreamingSortMergeJoinExec)):
+        _join_to_proto(p.sort_merge_join, op)
+        p.sort_merge_join.streaming = isinstance(
+            op, StreamingSortMergeJoinExec)
     elif isinstance(op, ShuffleWriterExec):
         sw = p.shuffle_writer
         sw.input.CopyFrom(plan_to_proto(op.children[0]))
@@ -397,6 +441,16 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
             f"plan node {type(op).__name__} waits for {_ROADMAP_OPS}"
         )
     return p
+
+
+def _join_to_proto(h, op: PhysicalOp) -> None:
+    """The fields a hash join and a sort-merge join share."""
+    left, right = op.children
+    h.left.CopyFrom(plan_to_proto(left))
+    h.right.CopyFrom(plan_to_proto(right))
+    h.left_keys.extend(left.schema.fields[i].name for i in op.left_keys)
+    h.right_keys.extend(right.schema.fields[i].name for i in op.right_keys)
+    h.join_type = _JT_TO_PB[op.join_type]
 
 
 def task_to_proto(op: PhysicalOp, partition: int, task_id: str = "task",

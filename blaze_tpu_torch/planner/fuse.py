@@ -16,10 +16,17 @@ down and rewrites:
   (`d2h_syncs.group_branch`, `.insert_round`, `.n_groups`), so a keyed
   batch is not one graph yet (ROADMAP 'Modules to port' item 1, the
   grouped carry). So does a keyless aggregate with FIRST or LAST,
-  whose states do not merge in a carry.
+  whose states do not merge in a carry;
+- a join (hash, sort-merge, streaming sort-merge) stays in place, and
+  the Filter/Project chain under each child becomes a
+  `FusedPipelineExec`: on the build side even a single stage, as the
+  JAX package's `_fuse_join_under_agg` does (the build relation is
+  collected once), on the probe side a chain of two or more. The
+  JAX package's fused join+aggregate program (the probe folded into
+  the aggregate's kernel) waits for item 1 with the grouped carry.
 
 Every other node is left in place with its children rewritten; nodes
-the port does not have (joins, windows) do not reach this pass.
+the port does not have (windows) do not reach this pass.
 """
 
 from __future__ import annotations
@@ -43,6 +50,18 @@ def _collect_chain(op: PhysicalOp) -> Tuple[List[PhysicalOp], PhysicalOp]:
         chain.append(t)
         t = t.children[0]
     return chain, t
+
+
+def _fuse_chain(op: PhysicalOp, min_stages: int) -> PhysicalOp:
+    """`op`'s Filter/Project chain as a FusedPipelineExec when it has at
+    least `min_stages` stages; the pass below it either way."""
+    from blaze_tpu_torch.ops.fused import FusedPipelineExec
+
+    chain, leaf = _collect_chain(op)
+    if len(chain) >= min_stages:
+        return FusedPipelineExec(fuse_pipelines(leaf),
+                                 list(reversed(chain)))
+    return fuse_pipelines(op)
 
 
 def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
@@ -71,6 +90,12 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
             op.children = [FusedPipelineExec(fuse_pipelines(leaf),
                                              list(reversed(chain)))]
             return op
+    build_child = getattr(op, "build_child", None)
+    if build_child is not None:
+        op.children = [
+            _fuse_chain(c, 1 if i == build_child else 2)
+            for i, c in enumerate(op.children)]
+        return op
     chain, t = _collect_chain(op)
     if len(chain) >= 2:
         return FusedPipelineExec(fuse_pipelines(t), list(reversed(chain)))

@@ -10,11 +10,19 @@ block, and the executor files it into each task's metric tree.
 Keys in use:
 - `h2d_copies`: host -> device buffer copies (batch.from_arrow);
 - `d2h_fetches`: device -> host buffer copies (batch.to_arrow);
-- `d2h_syncs`: blocking scalar readbacks (`host_int`, `host_bool`);
-  the grouped aggregate's are also counted by cause:
+- `d2h_syncs`: blocking scalar readbacks (`host_int`, `host_bool`,
+  `host_ints`); the grouped aggregate's are also counted by cause:
   `d2h_syncs.insert_round` (one per probe round of the hash table's
   insert loop), `d2h_syncs.group_branch` (direct or hashed slots) and
-  `d2h_syncs.n_groups` (the group-capacity ladder);
+  `d2h_syncs.n_groups` (the group-capacity ladder); so are the joins'
+  (ops/joins.py): `d2h_syncs.join_keyspan` (the build key's min and
+  max, once per build for the direct table), `.join_dup` (whether
+  build keys repeat, once per table built), `.join_insert_round` (one
+  per round of a join table's insert), `.join_probe_round` (one per
+  lookup round past the second) and `.join_pairs` (the sorted core's
+  pair count, once per probe batch);
+- `join_core.<core>`: which join core a build relation took
+  (`table_direct`, `table_kr`, `table`, `sorted`);
 - `launch.<kernel>`: launches of a hand-written kernel (ops/kernels);
   a launch inside a CUDA graph counts at each replay (`launched`);
 - `graph_captures`, `graph_replays`: CUDA graphs captured and replayed
@@ -85,6 +93,13 @@ def host_bool(x, what: Optional[str] = None) -> bool:
     """Blocking readback of a device bool, counted as host_int."""
     _sync(what)
     return bool(x)
+
+
+def host_ints(x, what: Optional[str] = None) -> List[int]:
+    """Blocking readback of a small device tensor as ints, one round
+    trip counted as host_int."""
+    _sync(what)
+    return [int(v) for v in x.tolist()]
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # the full run: 16,777,216 parquet rows
                                      # (q6, select, expr_chain,
-                                     # exchange_agg, grace), 4,194,304
-                                     # (grouped, repartition)
+                                     # exchange_agg, grace, join_agg,
+                                     # join_kr), 4,194,304 (grouped,
+                                     # repartition, join_sorted)
     python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
     python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6 and
                                           # select tasks of another
@@ -42,7 +43,12 @@ Phases, one JSON line each:
    partition ids), bit for bit: every fixed-width key type, nullable
    and not, one, three and nine key columns, int extremes, +/-0.0, NaNs
    of several payloads, subnormals and +/-inf, for n in 1, 2, 200, 1024
-   and the grace moduli 32, 128, 512, at 4096, 16,384 and 2^24 rows.
+   and the grace moduli 32, 128, 512, at 4096, 16,384 and 2^24 rows;
+   and K4's second entry, `hashes` (the chained hash itself, the sorted
+   join core's bucketing), bit for bit against the torch chain for
+   every key type alone, two and nine columns, at 1, 2, 200, 4096,
+   16,384 and (five cases) 2^24 rows, 13 rows of padding in every
+   other case.
    Then CUDA-event timings beside each kernel's bound and the PyTorch
    call for the same function (for K3 with its mask-and-widen pass; K1
    has none, and torch.sum over the unmasked column is its yardstick),
@@ -90,8 +96,31 @@ Phases, one JSON line each:
      `--rows` rows, past max_materialize_rows, so grace buckets it
      through K4; equal to a numpy oracle; its bucket counters printed.
    Each prints its wall, rows/s, launches, transfers and syncs, and
-   runs once more under torch.profiler. The shape of every kernel
-   launch on these paths is noted.
+   runs once more under torch.profiler. Then the joins:
+   - join_agg: bench.py's join_agg (bench.py:970-1024) through
+     execute_task: the `--rows` store_sales file probes the 131,072-row
+     item dimension (i_item = arange, i_brand in [0, 4096) as bench.py
+     draws it) in a hash join, then per brand SUM(price), COUNT(*); the
+     aggregate holds the join's whole output (max_materialize_rows =
+     the row count). Per brand COUNT equal to numpy's
+     bincount(i_brand[item]), SUM within 1e-9 relative of float64
+     numpy; the join must take the dense direct table;
+   - join_kr: the same with both keys times 16 (the span past 8x the
+     build rows): the fused key|row table;
+   - join_sorted: `--grouped-rows` rows against the dimension with
+     every row twice: the sorted core, K4's `hashes` on both sides;
+     COUNT and SUM twice numpy's;
+   - join types: INNER, LEFT, RIGHT, FULL, LEFT_SEMI, LEFT_ANTI through
+     HashJoinExec and SortMergeJoinExec (and LEFT_ANTI_NULL_AWARE
+     through the latter), 1,048,576 fact rows with NULL keys against
+     131,072 dimension rows with NULL and repeated keys, as
+     TaskDefinitions, against pyarrow's Table.join (NAAJ: numpy), row
+     pair for row pair;
+   - grace join: a FULL sort-merge join whose fact side holds one key
+     300,000 times, max_materialize_rows 200,000: both sides bucket
+     through K4, the hot bucket is bucketed again, then joined whole;
+     equal to the unbucketed run; its counters printed.
+   The shape of every kernel launch on these paths is noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
    phase 3, at every launch shape of phase 4 that phase 3 did not check;
    then K1, K2 and K3 timed at the most launched of those shapes (K2 at
@@ -917,6 +946,63 @@ def time_k4(torch, murmur3, rng, rows: int, key: str, nullable: bool,
             "library_ms": None}
 
 
+def k4_hash_cases():
+    """`hashes`' cases: every key type alone (nullable and not), two
+    columns, and nine (two launches)."""
+    cases = [c for c in k4_cases() if len(c[1]) in (1, 9)]
+    return cases + [("int32+float64_null", [("int32", False),
+                                            ("float64", True)])]
+
+
+def check_k4_hashes(torch, murmur3, rng, sizes, cases=None):
+    """K4's `hashes` against its plain version (the torch chain), bit
+    for bit, at each capacity; every other case leaves 13 rows of
+    padding, which must hold HASH_PAD. Returns the cases checked and
+    the (capacity, HASH_PAD, key signature) shapes covered."""
+    checked = 0
+    covered = set()
+    for size in sizes:
+        for i, (name, spec) in enumerate(cases or k4_hash_cases()):
+            cols = k4_inputs(torch, rng, spec, size)
+            num_rows = size - 13 if i % 2 and size > 13 else size
+            got = murmur3.hashes(cols, num_rows)
+            exp = murmur3.hashes_plain(cols, num_rows)
+            torch.cuda.synchronize()
+            if not torch.equal(got, exp):
+                bad = int((got != exp).sum())
+                raise AssertionError(
+                    f"K4 hashes {name} rows={size}: {bad} hashes differ "
+                    "from the plain version")
+            checked += 1
+            covered.add(k4_shape(size, murmur3.HASH_PAD, cols))
+    return checked, covered
+
+
+def check_k4_hashes_at(torch, murmur3, rng, shapes):
+    """`hashes` against its plain version at launch shapes noted on the
+    paths."""
+    return sum(check_k4_hashes(torch, murmur3, rng, [cap],
+                               [("path_shape", list(sig))])[0]
+               for cap, _, sig in shapes)
+
+
+def time_k4_hashes(torch, murmur3, rng, rows: int, key: str,
+                   nullable: bool):
+    """K4's `hashes` and its plain version on one key at `rows` rows;
+    the bound as time_k4's (one int32 hash written per row)."""
+    cols = k4_inputs(torch, rng, [(key, nullable)], rows)
+    width = np.dtype(K4_TYPES[key][0]).itemsize
+    nbytes = rows * (width + int(nullable) + 4)
+    words = 2 if width == 8 else 1
+    b_ms, b_by = bound(nbytes, rows * 20 * words, CUDA_CORE_OPS_PER_S)
+    return {"rows": rows, "key": key, "nullable": nullable,
+            "ms": cuda_ms(torch, lambda: murmur3.hashes(cols, rows)),
+            "plain_ms": cuda_ms(torch, lambda: murmur3.hashes_plain(
+                cols, rows)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the path
 # ---------------------------------------------------------------------------
@@ -1222,6 +1308,8 @@ def run_counted(torch, fn, kernels):
 
     for k in kernels.values():
         k.LAUNCHES = 0
+        if hasattr(k, "HASH_LAUNCHES"):
+            k.HASH_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with dispatch.counting() as c:
@@ -1229,6 +1317,10 @@ def run_counted(torch, fn, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.LAUNCHES for name, k in kernels.items()}
+    # K4's second wrapper counts apart: `hashes` (the sorted join core)
+    launches.update({name + "_hashes": k.HASH_LAUNCHES
+                     for name, k in kernels.items()
+                     if hasattr(k, "HASH_LAUNCHES")})
     transfers = {k: v for k, v in c.counts.items()
                  if not k.startswith("launch.")}
     return out, wall, launches, transfers
@@ -1846,6 +1938,323 @@ def exchange_phase(torch, rows: int, seed: int, kernels):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: the equi-joins
+# ---------------------------------------------------------------------------
+
+BRANDS = 4096  # i_brand of bench.py's item dimension, in [0, 4096)
+# join types against pyarrow's Table.join
+ARROW_JOIN = {"INNER": "inner", "LEFT": "left outer",
+              "RIGHT": "right outer", "FULL": "full outer",
+              "LEFT_SEMI": "left semi", "LEFT_ANTI": "left anti"}
+
+
+def item_brands(rows: int, seed: int) -> np.ndarray:
+    """i_brand of bench.py's item dimension (bench.py:881-888): drawn
+    after the fact's item, qty, price and part columns from one
+    generator."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, ITEMS, rows)
+    rng.integers(1, 10, rows)
+    rng.random(rows)
+    rng.integers(0, 1 << 10, rows)
+    return rng.integers(0, BRANDS, ITEMS).astype(np.int32)
+
+
+def join_agg_plan(fact, dim, scale: int = 1):
+    """bench.py's join_agg (bench.py:970-1024) on the port's operators:
+    per brand SUM(price) and COUNT(*) over store_sales joined with the
+    item dimension (the build side). With `scale` > 1 both keys are
+    multiplied by it (a sparse key domain)."""
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col, Literal
+    from blaze_tpu_torch.ops import (AggMode, HashAggregateExec,
+                                     HashJoinExec, JoinType, ProjectExec)
+    from blaze_tpu_torch.types import DataType
+
+    def key(name):
+        c = Col(name)
+        return c if scale == 1 else c * Literal(scale, DataType.int32())
+
+    build = dim if scale == 1 else ProjectExec(
+        dim, [(key("i_item"), "i_item"), (Col("i_brand"), "i_brand")])
+    probe = ProjectExec(fact, [(key("item"), "item"),
+                               (Col("price"), "price")])
+    join = HashJoinExec(build, probe, ["i_item"], ["item"], JoinType.INNER)
+    return HashAggregateExec(
+        ProjectExec(join, [(Col("i_brand"), "brand"),
+                           (Col("price"), "price")]),
+        keys=[(Col("brand"), "brand")],
+        aggs=[(AggExpr(AggFn.SUM, Col("price")), "rev"),
+              (AggExpr(AggFn.COUNT_STAR, None), "cnt")],
+        mode=AggMode.COMPLETE)
+
+
+def check_join_agg(table, item, price, brands, task: str, times: int = 1):
+    """COUNT per brand equal to numpy's bincount(i_brand[item]) (times
+    `times`: a dimension with each key that often), SUM within 1e-9
+    relative of the float64 numpy oracle. Returns the largest relative
+    SUM error."""
+    b = brands[item]
+    cnt = np.bincount(b, minlength=BRANDS) * times
+    rev = np.bincount(b, price.astype(np.float64), minlength=BRANDS) * times
+    got_b = table.column("brand").to_numpy()
+    nz = np.flatnonzero(cnt)
+    if not np.array_equal(np.sort(got_b), nz):
+        raise AssertionError(f"{task}: {len(got_b)} brands, numpy {len(nz)}"
+                             ", or the brand sets differ")
+    if not np.array_equal(table.column("cnt").to_numpy(), cnt[got_b]):
+        raise AssertionError(f"{task}: COUNT differs from numpy")
+    exp = rev[got_b]
+    rel = np.abs(table.column("rev").to_numpy() - exp) / np.maximum(
+        np.abs(exp), 1e-300)
+    if not (rel <= 1e-9).all():
+        raise AssertionError(f"{task}: SUM off by {rel.max()} relative")
+    return float(rel.max())
+
+
+def join_ctx(max_rows: int):
+    """A cuda context whose aggregate holds the whole join output
+    (max_materialize_rows = `max_rows`) instead of bucketing it to disk:
+    16,777,216 rows of (brand, price) take 134 MB of the card's 80 GB."""
+    from blaze_tpu_torch.config import EngineConfig
+    from blaze_tpu_torch.ops.base import ExecContext
+
+    return ExecContext(device="cuda",
+                       config=EngineConfig(max_materialize_rows=max_rows))
+
+
+def join_task_line(torch, task, blob, rows, kernels, core, check,
+                   max_rows, **extra):
+    """Run one join task through execute_task, check it, gate its core
+    and kernels, print its path line and profile it once more."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    def run():
+        return list(execute_task(blob, join_ctx(max_rows)))
+
+    out, wall, launches, transfers = run_counted(torch, run, kernels)
+    err = check(pa.Table.from_batches(out))
+    if transfers.get("join_core." + core, 0) != 1:
+        raise AssertionError(f"{task}: join core {core} not taken: "
+                             f"{transfers}")
+    for name in ("segment_reduce", "compact_perm"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{task} did not launch {name}")
+    batches = -(-rows // 16384)
+    path_line(task, rows, wall, launches, transfers, sum_max_rel_err=err,
+              join_core=core, probe_batches=batches,
+              syncs_per_batch=transfers.get("d2h_syncs", 0) / batches,
+              join_syncs={k: v for k, v in transfers.items()
+                          if k.startswith("d2h_syncs.join")}, **extra)
+    profile_run(torch, run, task, wall)
+    return {"launches": launches, "wall_s": wall}
+
+
+def id_pairs(table, left: str, right: str) -> np.ndarray:
+    """The sorted (left id, right id) pairs of a join's output, a NULL
+    id (the padded side of an outer join) as -1, packed in int64."""
+    def ids(name):
+        if name not in table.column_names:
+            return np.full(table.num_rows, -1, np.int64)
+        return table.column(name).fill_null(-1).to_numpy().astype(np.int64)
+
+    return np.sort((ids(left) + 1) << 32 | (ids(right) + 1))
+
+
+def join_types_check(torch, work, seed, kernels):
+    """Every join type through HashJoinExec (no null-aware anti join
+    there) and SortMergeJoinExec on 1,048,576 fact rows with NULL keys
+    against a 131,072-row dimension whose keys repeat (the sorted core),
+    as TaskDefinitions, against pyarrow's Table.join (NAAJ: numpy). A
+    join's output is compared as its (dimension row, fact row) pairs."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.ops import (FileRange, HashJoinExec, JoinType,
+                                     ParquetScanExec, SortMergeJoinExec)
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    rng = np.random.default_rng(seed + 7)
+    n_fact, n_dim = 1 << 20, ITEMS
+    dim = pa.table({
+        "a": pa.array(rng.integers(0, ITEMS, n_dim).astype(np.int32),
+                      mask=rng.random(n_dim) < 0.05),
+        "aid": np.arange(n_dim, dtype=np.int32)})
+    fact = pa.table({
+        "b": pa.array(rng.integers(0, ITEMS + 4096, n_fact).astype(np.int32),
+                      mask=rng.random(n_fact) < 0.05),
+        "bid": np.arange(n_fact, dtype=np.int32),
+        "y": rng.random(n_fact)})
+    dim_nn = dim.set_column(0, "a", dim.column("a").fill_null(0))
+    paths = {}
+    for name, t in (("dim", dim), ("fact", fact), ("dim_nn", dim_nn)):
+        paths[name] = os.path.join(work, f"jt_{name}.parquet")
+        pq.write_table(t, paths[name], row_group_size=1 << 20)
+
+    def scan(name):
+        return ParquetScanExec([[FileRange(paths[name])]])
+
+    checked = []
+    for jt in JoinType:
+        for kind in ("hash", "smj"):
+            if kind == "hash" and jt is JoinType.LEFT_ANTI_NULL_AWARE:
+                continue
+            d = "dim_nn" if jt is JoinType.LEFT_ANTI_NULL_AWARE else "dim"
+            if kind == "hash":
+                op = HashJoinExec(scan(d), scan("fact"), ["a"], ["b"], jt)
+            else:
+                op = SortMergeJoinExec(scan("fact"), scan(d), ["b"], ["a"],
+                                       jt)
+            blob = task_to_proto(op, 0)
+            out, wall, launches, transfers = run_counted(
+                torch, lambda: list(execute_task(blob, join_ctx(1 << 22))),
+                kernels)
+            got = id_pairs(pa.Table.from_batches(out) if out
+                           else pa.table({}), "aid", "bid")
+            if jt is JoinType.LEFT_ANTI_NULL_AWARE:
+                b = fact.column("b")
+                keep = b.is_valid().to_numpy(zero_copy_only=False) & \
+                    ~np.isin(b.fill_null(0).to_numpy(),
+                             dim_nn.column("a").to_numpy())
+                exp = np.sort(np.flatnonzero(keep).astype(np.int64) + 1)
+            else:
+                left, right, lk, rk = (dim, fact, "a", "b") \
+                    if kind == "hash" else (fact, dim, "b", "a")
+                exp = id_pairs(left.join(right, keys=lk, right_keys=rk,
+                                         join_type=ARROW_JOIN[jt.name]),
+                               "aid", "bid")
+            if not np.array_equal(got, exp):
+                raise AssertionError(
+                    f"join {kind} {jt.name}: {len(got)} rows, pyarrow "
+                    f"{len(exp)}, or the row pairs differ")
+            if transfers.get("join_core.sorted", 0) < 1 or \
+                    launches["murmur3_hashes"] <= 0:
+                raise AssertionError(f"join {kind} {jt.name}: not on the "
+                                     f"sorted core with K4 hashes")
+            checked.append({"join": kind, "type": jt.name,
+                            "rows": int(len(got)), "wall_s": wall,
+                            "murmur3_hashes": launches["murmur3_hashes"]})
+    return checked, paths
+
+
+def grace_join_check(torch, work, paths, seed, kernels):
+    """A sort-merge join whose fact side holds one key 300,000 times,
+    with max_materialize_rows 200,000: both sides bucket through K4,
+    the hot key's bucket is bucketed again at each depth and joined
+    whole at the last. Equal to the unbucketed run, pair for pair."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.config import EngineConfig
+    from blaze_tpu_torch.ops import (FileRange, JoinType, ParquetScanExec,
+                                     SortMergeJoinExec)
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    fact = pq.read_table(paths["fact"])
+    b = fact.column("b").fill_null(0).to_numpy().copy()
+    valid = fact.column("b").is_valid().to_numpy(zero_copy_only=False)
+    hot = int(pq.read_table(paths["dim"]).column("a").drop_null()[0]
+              .as_py())
+    b[:300_000] = hot
+    valid[:300_000] = True
+    hot_path = os.path.join(work, "jt_fact_hot.parquet")
+    pq.write_table(fact.set_column(0, "b", pa.array(b, mask=~valid)),
+                   hot_path, row_group_size=1 << 20)
+    op = SortMergeJoinExec(ParquetScanExec([[FileRange(hot_path)]]),
+                           ParquetScanExec([[FileRange(paths["dim"])]]),
+                           ["b"], ["a"], JoinType.FULL)
+    blob = task_to_proto(op, 0)
+    ctx = ExecContext(device="cuda",
+                      config=EngineConfig(max_materialize_rows=200_000))
+    out, wall, launches, transfers = run_counted(
+        torch, lambda: list(execute_task(blob, ctx)), kernels)
+    ref = list(execute_task(blob, join_ctx(1 << 22)))
+    got = id_pairs(pa.Table.from_batches(out), "aid", "bid")
+    exp = id_pairs(pa.Table.from_batches(ref), "aid", "bid")
+    c = ctx.metrics.counters
+    counters = {k: c.get(k, 0) for k in ("external_join_buckets",
+                                         "external_join_rebuckets",
+                                         "external_join_hot_buckets")}
+    if not np.array_equal(got, exp):
+        raise AssertionError(f"grace join: {len(got)} rows, unbucketed "
+                             f"{len(exp)}, or the pairs differ")
+    if counters["external_join_rebuckets"] < 1 or \
+            counters["external_join_hot_buckets"] < 1 or \
+            launches["murmur3"] <= 0:
+        raise AssertionError(f"grace join did not re-bucket through K4: "
+                             f"{counters}")
+    return {"rows": int(len(got)), "wall_s": wall, **counters,
+            "murmur3": launches["murmur3"],
+            "murmur3_hashes": launches["murmur3_hashes"]}
+
+
+def join_phase(torch, rows: int, sorted_rows_: int, seed: int, kernels):
+    """join_agg, join_kr and join_sorted through execute_task, then the
+    join types, the grace join."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.plan.serde import task_to_proto
+
+    work = os.path.join(REPO, "build", "chip_smoke_join")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        fact_path = os.path.join(work, "store_sales.parquet")
+        item, qty, price = write_store_sales(fact_path, rows, seed)
+        brands = item_brands(rows, seed)
+        dim_path = os.path.join(work, "item.parquet")
+        pq.write_table(pa.table({"i_item": np.arange(ITEMS, dtype=np.int32),
+                                 "i_brand": brands}), dim_path)
+        twice_path = os.path.join(work, "item_twice.parquet")
+        pq.write_table(pa.table({
+            "i_item": np.tile(np.arange(ITEMS, dtype=np.int32), 2),
+            "i_brand": np.tile(brands, 2)}), twice_path)
+        small_path = os.path.join(work, "store_sales_sorted.parquet")
+        write_parquet(small_path, item[:sorted_rows_], qty[:sorted_rows_],
+                      price[:sorted_rows_])
+        write_s = time.perf_counter() - t0
+
+        def scan(p):
+            return ParquetScanExec([[FileRange(p)]])
+
+        for task, fact, dim, scale, core, n, times in (
+                ("join_agg", fact_path, dim_path, 1, "table_direct", rows,
+                 1),
+                ("join_kr", fact_path, dim_path, 16, "table_kr", rows, 1),
+                ("join_sorted", small_path, twice_path, 1, "sorted",
+                 sorted_rows_, 2)):
+            blob = task_to_proto(join_agg_plan(scan(fact), scan(dim),
+                                               scale), 0)
+            results[task] = join_task_line(
+                torch, task, blob, n, kernels, core,
+                lambda t, task=task, n=n, times=times: check_join_agg(
+                    t, item[:n], price[:n], brands, task, times),
+                max_rows=times * rows, build_rows=times * ITEMS,
+                key_scale=scale, parquet_write_s=write_s)
+        if results["join_sorted"]["launches"]["murmur3_hashes"] <= 0:
+            raise AssertionError("join_sorted did not launch K4 hashes")
+
+        t0 = time.perf_counter()
+        checked, paths = join_types_check(torch, work, seed, kernels)
+        grace = grace_join_check(torch, work, paths, seed, kernels)
+        emit({"phase": "join_types", "fact_rows": 1 << 20,
+              "dim_rows": ITEMS, "oracle": "pyarrow Table.join; NAAJ numpy",
+              "joins": checked, "grace": grace,
+              "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def time_tree(torch, tree: str, rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
@@ -2086,6 +2495,24 @@ def main() -> int:
           "k4_tolerance": "partition ids equal, bit for bit",
           "k4_timings": k4_times, "nvidia_smi": smi,
           "k4_library": "none: no PyTorch call computes Spark's murmur3"})
+    # K4's `hashes` (the sorted join core) at the probe batch's 16,384
+    # rows, at 2^24 rows and at check_k4's ragged sizes, with 1, 2 and 9
+    # key columns; timed at the sorted path's shape (16,384 int32 keys)
+    n4h, k4h_covered = check_k4_hashes(torch, murmur3, rng,
+                                       [16384, 4096, 200, 2, 1])
+    big = [c for c in k4_hash_cases()
+           if c[0] in ("int32", "int64_null", "float64_null",
+                       "int32+float64_null", "nine_columns")]
+    more = check_k4_hashes(torch, murmur3, rng, [1 << 24], big)
+    n4h += more[0]
+    k4h_covered |= more[1]
+    k4h_times = [time_k4_hashes(torch, murmur3, rng, *a) for a in (
+        (16384, "int32", False), (1 << 24, "int32", False),
+        (1 << 24, "int64", False))]
+    emit({"phase": "kernels", "k4_hashes_cases": n4h,
+          "k4_hashes_tolerance": "hashes equal to the torch chain, bit for "
+                                 "bit; HASH_PAD past num_rows",
+          "k4_hashes_timings": k4h_times, "nvidia_smi": smi})
 
     # 3b. CUDA graphs of the fused keyless aggregate against its eager run
     graph_phase(torch, stats, rng)
@@ -2098,6 +2525,8 @@ def main() -> int:
         res.update(grouped_phase(torch, args.grouped_rows, args.seed,
                                  kernels))
         res.update(exchange_phase(torch, args.rows, args.seed, kernels))
+        res.update(join_phase(torch, args.rows, args.grouped_rows,
+                              args.seed, kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check, then timed at the most
@@ -2107,7 +2536,11 @@ def main() -> int:
                                   - set(K2_SIZES)),
            "segment_reduce": sorted(set(seen["segment_reduce"])
                                     - set(k3_shapes)),
-           "murmur3": sorted(set(seen["murmur3"]) - k4_covered)}
+           "murmur3": sorted(sh for sh in set(seen["murmur3"]) - k4_covered
+                             if sh[1] != murmur3.HASH_PAD),
+           "murmur3_hashes": sorted(
+               sh for sh in set(seen["murmur3"]) - k4h_covered
+               if sh[1] == murmur3.HASH_PAD)}
     extra = {"masked_stats": check_k1(torch, stats, rng, new["masked_stats"]),
              "compact_perm": check_k2(torch, compact, rng,
                                       new["compact_perm"]),
@@ -2115,7 +2548,9 @@ def main() -> int:
                                         new["segment_reduce"],
                                         variants=False),
              "murmur3": (check_k4_at(torch, murmur3, rng, new["murmur3"]),
-                         0)}
+                         0),
+             "murmur3_hashes": (check_k4_hashes_at(
+                 torch, murmur3, rng, new["murmur3_hashes"]), 0)}
     k1_err = max(k1_err, extra["masked_stats"][1])
     k2_err = max(k2_err, extra["compact_perm"][1])
     k3_err = max(k3_err, extra["segment_reduce"][1])
@@ -2138,7 +2573,8 @@ def main() -> int:
           "checked_here": new,
           "cases": {name: v[0] for name, v in extra.items()},
           "max_abs_err": {"masked_stats": k1_err, "compact_perm": k2_err,
-                          "segment_reduce": k3_err, "murmur3": 0},
+                          "segment_reduce": k3_err, "murmur3": 0,
+                          "murmur3_hashes": 0},
           "timings": path_times, "nvidia_smi": smi})
 
     # summary: timings at the main path's batch shape, 16384 rows
@@ -2149,6 +2585,8 @@ def main() -> int:
     # K4 at exchange_agg's map-side shape: 16,384 nullable int32 keys,
     # 200 partitions
     main_t["murmur3"] = k4_times[0]
+    # K4's hashes at join_sorted's probe batch: 16,384 int32 keys
+    main_t["murmur3_hashes"] = k4h_times[0]
     summary = []
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
@@ -2160,6 +2598,8 @@ def main() -> int:
          k3_err),
         ("murmur3", "blaze_tpu_torch/csrc/murmur3.cu",
          "blaze_tpu/ops/kernels/murmur3_pallas.py:104", "exchange_agg", 0),
+        ("murmur3_hashes", "blaze_tpu_torch/csrc/murmur3.cu",
+         "blaze_tpu/ops/kernels/murmur3_pallas.py:104", "join_sorted", 0),
     ):
         t = main_t[name]
         summary.append({

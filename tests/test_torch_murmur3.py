@@ -246,6 +246,8 @@ def test_float_key_hash_follows_spark(width, bits):
     assert h.tolist() == [exp] * 4
     ids = murmur3.partition_ids([(torch.from_numpy(v), None, dt)], 4, 200)
     assert ids.tolist() == [exp % 200] * 4
+    assert murmur3.hashes([(torch.from_numpy(v), None, dt)], 4).tolist() \
+        == [exp] * 4
 
 
 def test_jax_device_float_hash_deviates_from_spark():
@@ -331,3 +333,56 @@ def test_partition_ids_refuse_non_cpu_tensors_instead_of_plain():
         murmur3.partition_ids([(w, None, DataType.int32()),
                                (v, None, DataType.int32())], 16, 4)
     assert murmur3.LAUNCHES == 0
+
+
+# ---------------------------------------------------------------------------
+# hashes: the chained hash itself (the sorted join core's bucketing)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["int32-null", "float64-valid",
+                                  "float32-null", "bool-valid"]
+                         + sorted(MIXES) + ["nine_columns"])
+def test_hashes_matches_jax_chain(jax_chain, case):
+    """`hashes` is the JAX package's hash_columns_device below num_rows
+    and HASH_PAD past it, for one, three and nine key columns (nine
+    take two launches on the card); pmod of it is partition_ids."""
+    cases, exp_h = jax_chain
+    if case == "nine_columns":
+        spec = [cases[f"{t}-{'null' if i % 2 else 'valid'}"][0]
+                for i, t in enumerate(["int32", "float64", "int64", "bool",
+                                       "int8", "int16", "date32",
+                                       "timestamp_us", "decimal18"])]
+        exp = jax_hash_of(spec)
+    else:
+        spec, exp = cases[case], exp_h[case]
+    cols = [(torch.from_numpy(v), None if m is None else torch.from_numpy(m),
+             port_dtype(t)) for t, v, m in spec]
+    num_rows = CAP - 13
+    got = murmur3.hashes(cols, num_rows).numpy()
+    np.testing.assert_array_equal(got[:num_rows], exp[:num_rows])
+    assert (got[num_rows:] == murmur3.HASH_PAD).all()
+    ids = murmur3.partition_ids(cols, num_rows, 200).numpy()
+    np.testing.assert_array_equal(
+        ids[:num_rows], got[:num_rows].astype(np.int64) % 200)
+    assert murmur3.HASH_LAUNCHES == 0
+
+
+def jax_hash_of(spec):
+    """The JAX package's hash_columns_device of [(type, values,
+    validity)]."""
+    cols = [(jnp.asarray(v), None if m is None else jnp.asarray(m),
+             jax_dtype(t)) for t, v, m in spec]
+    return np.asarray(jax_hashing.hash_columns_device(cols, CAP))
+
+
+def test_hashes_refuse_bad_input():
+    v = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        murmur3.hashes([(v, None, DataType.utf8())], 16)
+    with pytest.raises(ValueError):
+        murmur3.hashes([(v, None, DataType.int32())], 17)
+    with pytest.raises(ValueError):
+        murmur3.hashes([], 16)
+    meta = torch.zeros(16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        murmur3.hashes([(meta, None, DataType.int32())], 16)
