@@ -53,6 +53,13 @@ class EngineConfig:
     # when build keys repeat; "sort" always takes the sorted core;
     # "auto" is "scatter" on every device.
     join_core: str = "auto"
+    # Sort core (the JAX package's config.sort_core): "scatter" packs
+    # each key into one int64 lane (null rank, 32-bit order key, row
+    # position) and sorts its values, one sort a key, for keys of at
+    # most 32 bits below 2^29 rows; "sort" always takes the lexsort
+    # path, iterated stable sorts from the least significant key;
+    # "auto" is "scatter" on every device (ops/util.sort_indices).
+    sort_core: str = "auto"
 
     def bucket_for(self, num_rows: int) -> int:
         for b in self.shape_buckets:
@@ -74,6 +81,14 @@ def resolve_join_core(value: str) -> str:
     if value not in ("auto", "scatter", "sort"):
         raise ValueError(
             f"join_core must be auto|scatter|sort, got {value!r}")
+    return "sort" if value == "sort" else "scatter"
+
+
+def resolve_sort_core(value: str) -> str:
+    """"scatter" or "sort" for a sort_core value; unknown values raise."""
+    if value not in ("auto", "scatter", "sort"):
+        raise ValueError(
+            f"sort_core must be auto|scatter|sort, got {value!r}")
     return "sort" if value == "sort" else "scatter"
 
 

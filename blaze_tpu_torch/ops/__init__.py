@@ -1,9 +1,11 @@
 """Physical operators of the port: scans, filter, project, the hash
 aggregate (keyless and keyed, with grace execution past its
 materialization limit), the equi-joins (broadcast hash join, sort-merge
-join with grace buckets, streaming sort-merge join), and the exchange:
-the shuffle writer and the IPC reader and writer. Operators stream ColumnBatches per partition and
-compute eagerly on the task's device.
+join with grace buckets, streaming sort-merge join), sort (in memory,
+top-k, run merge, host), limit, union, coalesce, empty partitions,
+rename, debug, the window operator, and the exchange: the shuffle
+writer and the IPC reader and writer. Operators stream ColumnBatches
+per partition and compute eagerly on the task's device.
 """
 
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
@@ -25,6 +27,13 @@ from blaze_tpu_torch.ops.joins import (
     SortMergeJoinExec,
 )
 from blaze_tpu_torch.ops.streaming_smj import StreamingSortMergeJoinExec
+from blaze_tpu_torch.ops.sort import SortExec, SortKey
+from blaze_tpu_torch.ops.limit import LimitExec
+from blaze_tpu_torch.ops.union import CoalescePartitionsExec, UnionExec
+from blaze_tpu_torch.ops.empty import EmptyPartitionsExec
+from blaze_tpu_torch.ops.rename import RenameColumnsExec
+from blaze_tpu_torch.ops.debug import DebugExec
+from blaze_tpu_torch.ops.window import WindowExec, WindowFn
 
 __all__ = [
     "ExecContext",
@@ -46,4 +55,14 @@ __all__ = [
     "JoinType",
     "SortMergeJoinExec",
     "StreamingSortMergeJoinExec",
+    "SortExec",
+    "SortKey",
+    "LimitExec",
+    "UnionExec",
+    "CoalescePartitionsExec",
+    "EmptyPartitionsExec",
+    "RenameColumnsExec",
+    "DebugExec",
+    "WindowExec",
+    "WindowFn",
 ]

@@ -19,7 +19,9 @@ of `dispatch.cached_kernel` (runtime/dispatch.GraphCache).
   `_build_carry_kernel`): each batch runs the chain, K1's partial
   statistics and a merge into a running carry, all in the one replay;
   the carry is fetched once, at end of stream.
-- `HostFinalAggExec`: finalizes the fetched carry on the host.
+- `FusedWindowAggExec`: a keyless aggregate over a window, one eager
+  pass per task (ops/window.py does the window's work; no graph).
+- `HostFinalAggExec`: finalizes the fetched state row on the host.
 
 Whether a batch replays a graph is decided from the plan and the
 batch, never by catching a failure: the chain's expressions must not
@@ -27,8 +29,10 @@ need the host (the JAX package's `_expr_needs_host`), and the batch
 must be a packed CUDA batch, as the parquet scan makes them. Any other
 batch - on the CPU, or from another leaf - runs the same code eagerly
 and counts in `dispatch` `graph_eager_batches`. A capture or replay
-error raises. The grouped carry, the fused join and FusedWindowAggExec
-wait for ROADMAP 'Modules to port' item 1.
+error raises.
+
+The grouped carry and the fused join wait for ROADMAP 'Modules to
+port' item 1.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.filter import FilterExec
 from blaze_tpu_torch.ops.project import batch_cvs
+from blaze_tpu_torch.ops.rename import RenameColumnsExec
 from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.pack import Layout, live_rows
 
@@ -72,6 +77,8 @@ def _expr_needs_host(e: ir.Expr, schema: Schema) -> bool:
 
 
 def stage_needs_host(op: PhysicalOp) -> bool:
+    if isinstance(op, RenameColumnsExec):
+        return False
     schema = op.children[0].schema
     if isinstance(op, FilterExec):
         return _expr_needs_host(op.predicate, schema)
@@ -84,6 +91,8 @@ def _stage_key(st: PhysicalOp) -> Tuple:
     ones, each column as its position and type."""
     if isinstance(st, FilterExec):
         return ("F", repr(st.predicate))
+    if isinstance(st, RenameColumnsExec):
+        return ("R", tuple(st.names))
     return ("P", tuple(repr(e) for e, _ in st.exprs))
 
 
@@ -126,9 +135,9 @@ def _graph_live(buf: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 class FusedPipelineExec(PhysicalOp):
-    """A chain of Filter/Project stages run as one CUDA graph per batch
-    (eagerly where no graph can take the batch). An empty chain is
-    allowed: a fused aggregate directly over its leaf."""
+    """A chain of Filter/Project/Rename stages run as one CUDA graph per
+    batch (eagerly where no graph can take the batch). An empty chain
+    is allowed: a fused aggregate directly over its leaf."""
 
     def __init__(self, leaf: PhysicalOp, stages: Sequence[PhysicalOp]):
         self.children = [leaf]
@@ -161,6 +170,8 @@ class FusedPipelineExec(PhysicalOp):
             if isinstance(st, FilterExec):
                 keep = ev.evaluate_predicate(st.predicate)
                 sel = keep if sel is None else sel & keep
+            elif isinstance(st, RenameColumnsExec):  # columns as they are
+                schema = st.schema
             else:
                 cols = [ev.evaluate(e) for e, _ in st.exprs]
                 schema = st.schema
@@ -394,15 +405,7 @@ class FusedAggregateExec(PhysicalOp):
                 dispatch.GRAPHS.release(key, g)
 
     def _emit(self, carry: _Carry) -> ColumnBatch:
-        if self.fetch_host and carry.buf.device.type != "cpu":
-            dispatch.record("d2h_fetches")
-            buf = carry.buf.cpu()
-        else:
-            buf = carry.buf.clone()
-        cols = carry.columns(carry.layout.views(buf))
-        return ColumnBatch(self._schema, [
-            Column(f.dtype, v, m) for f, (v, m) in zip(self._schema, cols)
-        ], 1)
+        return _state_row(carry, self._schema, self.fetch_host)
 
     def _capture(self, cb: PackedColumnBatch) -> dispatch.Graph:
         from blaze_tpu_torch.ops.kernels import stats
@@ -425,6 +428,91 @@ class FusedAggregateExec(PhysicalOp):
                               scratch=scratch)
 
 
+def _state_row(carry: _Carry, schema: Schema, fetch_host: bool
+               ) -> ColumnBatch:
+    """The carry as one state row: fetched to the host in one copy, or
+    a device copy of its own."""
+    if fetch_host and carry.buf.device.type != "cpu":
+        dispatch.record("d2h_fetches")
+        buf = carry.buf.cpu()
+    else:
+        buf = carry.buf.clone()
+    cols = carry.columns(carry.layout.views(buf))
+    return ColumnBatch(schema, [
+        Column(f.dtype, v, m) for f, (v, m) in zip(schema, cols)
+    ], 1)
+
+
+class FusedWindowAggExec(PhysicalOp):
+    """A keyless aggregate over a window, whole-task (the JAX package's
+    FusedWindowAggExec): the window's folded Project/Rename chain, the
+    shared (partition, order) argsort, the gather of only the columns
+    the window functions and the aggregate read, the frame passes of
+    only the functions the aggregate reads, and the keyless PARTIAL
+    states through `_Scalar` (kernel K1), eagerly, once per task. Emits
+    one state row, fetched to the host in one copy, for
+    HostFinalAggExec."""
+
+    def __init__(self, window, agg):
+        from blaze_tpu_torch.ops.hash_aggregate import AggMode
+
+        if agg.keys or agg.mode is not AggMode.PARTIAL:
+            raise ValueError("FusedWindowAggExec takes a keyless PARTIAL "
+                             "aggregate")
+        self.window = window
+        self.children = window.children  # the window's own list
+        self.agg = agg
+        self._schema = agg.schema
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def describe(self) -> str:
+        return (f"FusedWindowAggExec[{self.window.describe()} -> keyless "
+                "partial]")
+
+    def execute(self, partition: int, ctx: ExecContext
+                ) -> Iterator[ColumnBatch]:
+        from blaze_tpu_torch.ops.hash_aggregate import (
+            AggMode,
+            _Scalar,
+            _agg_state,
+        )
+        from blaze_tpu_torch.ops.window import expr_refs
+
+        win = self.window
+        cb = win.input_batch(partition, ctx)
+        if cb.num_rows == 0:
+            return  # HostFinalAggExec emits the keyless global row
+        dispatch.record("window_route.fused_agg")
+        n_in = len(win._in_schema)
+        reads = set()
+        for a, _ in self.agg.aggs:
+            if a.child is not None:
+                reads |= expr_refs(a.child, win.schema)
+        cols, outs = win.run(
+            cb, want_cols={i for i in reads if i < n_in},
+            want_fns=[n_in + j in reads
+                      for j in range(len(win.functions))])
+        cap, dev = cb.capacity, cb.device
+        ev = DeviceEvaluator(win.schema, cols + outs, cap, dev)
+        live = cb.live_mask()
+        red = _Scalar()
+        states: List[CV] = []
+        for a, _ in self.agg.aggs:
+            states.extend(_agg_state(a, ev, live, red, cap, AggMode.PARTIAL))
+        carry = _Carry(self._schema, dev)
+        for (cv, cm), (nv, nm) in zip(carry.columns(carry.tensors), states):
+            cv.copy_(nv.reshape(1).to(cv.dtype))
+            if cm is not None:
+                if nm is None:
+                    cm.fill_(True)
+                else:
+                    cm.copy_(nm.reshape(1))
+        yield _state_row(carry, self._schema, fetch_host=True)
+
+
 class HostFinalAggExec(PhysicalOp):
     """Finalizes the keyless carry's state row on the host: the other
     half of the COMPLETE rewrite (the JAX package's HostFinalAggExec,
@@ -433,7 +521,7 @@ class HostFinalAggExec(PhysicalOp):
     task boundary reads it. An empty stream gives the global row of an
     empty input (COUNT 0, the rest NULL)."""
 
-    def __init__(self, child: FusedAggregateExec, template):
+    def __init__(self, child: PhysicalOp, template):
         # template: the original COMPLETE HashAggregateExec
         self.children = [child]
         self.template = template

@@ -6,12 +6,13 @@ Mirror of the reference's two-sided serde: the Scala builders
 Rust decoder (`TryInto<Arc<dyn ExecutionPlan>>`, from_proto.rs:162-560).
 The wire format is the JAX package's, unchanged: TaskDefinition bytes
 from either package decode in the other. The port carries the
-parquet_scan, ipc_reader, filter, project, hash_aggregate, hash_join,
-sort_merge_join (streaming or not), shuffle_writer (hash, single,
-round_robin) and ipc_writer arms, and a task's local file resources
-(the IpcReader inputs of a reduce task); every other plan arm, range
-partitioning and remote segments raise NotImplementedError naming the
-ROADMAP item that brings them.
+parquet_scan, ipc_reader, empty_partitions, filter, project, sort,
+union, limit, hash_aggregate, hash_join, sort_merge_join (streaming or
+not), shuffle_writer (hash, single, round_robin), ipc_writer,
+rename_columns, debug and window arms, and a task's local file
+resources (the IpcReader inputs of a reduce task); every other plan
+arm, range partitioning and remote segments raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.ir import AggFn, Op
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.ops.base import PhysicalOp
+from blaze_tpu_torch.ops.debug import DebugExec
+from blaze_tpu_torch.ops.empty import EmptyPartitionsExec
 from blaze_tpu_torch.ops.filter import FilterExec
 from blaze_tpu_torch.ops.hash_aggregate import AggMode, HashAggregateExec
 from blaze_tpu_torch.ops.ipc_reader import (
@@ -34,13 +37,18 @@ from blaze_tpu_torch.ops.joins import (
     JoinType,
     SortMergeJoinExec,
 )
+from blaze_tpu_torch.ops.limit import LimitExec
 from blaze_tpu_torch.ops.parquet_scan import FileRange, ParquetScanExec
 from blaze_tpu_torch.ops.project import ProjectExec
+from blaze_tpu_torch.ops.rename import RenameColumnsExec
 from blaze_tpu_torch.ops.shuffle_writer import (
     ROADMAP_EXCHANGE,
     ShuffleWriterExec,
 )
+from blaze_tpu_torch.ops.sort import SortExec, SortKey
 from blaze_tpu_torch.ops.streaming_smj import StreamingSortMergeJoinExec
+from blaze_tpu_torch.ops.union import UnionExec
+from blaze_tpu_torch.ops.window import WindowExec, WindowFn
 
 _ROADMAP_OPS = "ROADMAP 'Modules to port'"
 
@@ -324,6 +332,10 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
         r = p.ipc_reader
         return IpcReaderExec(r.resource_id, schema_from_proto(r.schema),
                              r.num_partitions, _PB_TO_IPC[r.mode])
+    if kind == "empty_partitions":
+        return EmptyPartitionsExec(
+            schema_from_proto(p.empty_partitions.schema),
+            p.empty_partitions.num_partitions)
     if kind == "project":
         return ProjectExec(
             plan_from_proto(p.project.input),
@@ -337,6 +349,16 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
             plan_from_proto(p.filter.input),
             expr_from_proto(p.filter.predicate),
         )
+    if kind == "sort":
+        return SortExec(
+            plan_from_proto(p.sort.input),
+            [SortKey(expr_from_proto(k.expr), k.ascending, k.nulls_first)
+             for k in p.sort.keys],
+            fetch=None if p.sort.fetch < 0 else p.sort.fetch)
+    if kind == "union":
+        return UnionExec([plan_from_proto(i) for i in p.union.inputs])
+    if kind == "limit":
+        return LimitExec(plan_from_proto(p.limit.input), p.limit.limit)
     if kind == "hash_aggregate":
         h = p.hash_aggregate
         return HashAggregateExec(
@@ -378,9 +400,55 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
     if kind == "ipc_writer":
         return IpcWriterExec(plan_from_proto(p.ipc_writer.input),
                              p.ipc_writer.resource_id)
+    if kind == "rename_columns":
+        return RenameColumnsExec(plan_from_proto(p.rename_columns.input),
+                                 list(p.rename_columns.names))
+    if kind == "debug":
+        return DebugExec(plan_from_proto(p.debug.input), p.debug.debug_id)
+    if kind == "window":
+        return _window_from_proto(p.window)
     raise NotImplementedError(
         f"plan node {kind!r} waits for {_ROADMAP_OPS}"
     )
+
+
+def _window_from_proto(w) -> WindowExec:
+    return WindowExec(
+        plan_from_proto(w.input),
+        partition_by=[expr_from_proto(e) for e in w.partition_by],
+        order_by=[SortKey(expr_from_proto(k.expr), k.ascending,
+                          k.nulls_first) for k in w.order_by],
+        functions=[
+            WindowFn(
+                f.kind,
+                expr_from_proto(f.source) if f.HasField("source") else None,
+                f.output,
+                # the offset travels biased by +1, so proto3's 0 default
+                # means "unset -> 1" while lag(v, 0) stays representable
+                (f.offset - 1) if f.offset else 1,
+                (f.frame,
+                 None if f.frame_lo < 0 else f.frame_lo,
+                 None if f.frame_hi < 0 else f.frame_hi)
+                if f.frame else None)
+            for f in w.functions])
+
+
+def _window_to_proto(w, op: WindowExec) -> None:
+    w.input.CopyFrom(plan_to_proto(op.children[0]))
+    for e in op.partition_by:
+        w.partition_by.add().CopyFrom(expr_to_proto(e))
+    for k in op.order_by:
+        w.order_by.add(expr=expr_to_proto(k.expr), ascending=k.ascending,
+                       nulls_first=k.nulls_first)
+    for f in op.functions:
+        fp = w.functions.add(kind=f.kind, output=f.output)
+        if f.source is not None:
+            fp.source.CopyFrom(expr_to_proto(f.source))
+        fp.offset = f.offset + 1  # +1 bias: see the decode side
+        if f.frame is not None:
+            fp.frame = f.frame[0]
+            fp.frame_lo = -1 if f.frame[1] is None else f.frame[1]
+            fp.frame_hi = -1 if f.frame[2] is None else f.frame[2]
 
 
 def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
@@ -403,6 +471,9 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
         r.schema.CopyFrom(schema_to_proto(op.schema))
         r.num_partitions = op.partition_count
         r.mode = _IPC_TO_PB[op.mode]
+    elif isinstance(op, EmptyPartitionsExec):
+        p.empty_partitions.schema.CopyFrom(schema_to_proto(op.schema))
+        p.empty_partitions.num_partitions = op.partition_count
     elif isinstance(op, ProjectExec):
         p.project.input.CopyFrom(plan_to_proto(op.children[0]))
         for e, name in op.exprs:
@@ -410,6 +481,19 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
     elif isinstance(op, FilterExec):
         p.filter.input.CopyFrom(plan_to_proto(op.children[0]))
         p.filter.predicate.CopyFrom(expr_to_proto(op.predicate))
+    elif isinstance(op, SortExec):
+        p.sort.input.CopyFrom(plan_to_proto(op.children[0]))
+        for k in op.keys:
+            p.sort.keys.add(expr=expr_to_proto(k.expr),
+                            ascending=k.ascending,
+                            nulls_first=k.nulls_first)
+        p.sort.fetch = op.fetch if op.fetch is not None else -1
+    elif isinstance(op, UnionExec):
+        for c in op.children:
+            p.union.inputs.add().CopyFrom(plan_to_proto(c))
+    elif isinstance(op, LimitExec):
+        p.limit.input.CopyFrom(plan_to_proto(op.children[0]))
+        p.limit.limit = op.limit
     elif isinstance(op, HashAggregateExec):
         h = p.hash_aggregate
         h.input.CopyFrom(plan_to_proto(op.children[0]))
@@ -436,6 +520,14 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
     elif isinstance(op, IpcWriterExec):
         p.ipc_writer.input.CopyFrom(plan_to_proto(op.children[0]))
         p.ipc_writer.resource_id = op.resource_id
+    elif isinstance(op, RenameColumnsExec):
+        p.rename_columns.input.CopyFrom(plan_to_proto(op.children[0]))
+        p.rename_columns.names.extend(op.names)
+    elif isinstance(op, DebugExec):
+        p.debug.input.CopyFrom(plan_to_proto(op.children[0]))
+        p.debug.debug_id = op.debug_id
+    elif isinstance(op, WindowExec):
+        _window_to_proto(p.window, op)
     else:
         raise NotImplementedError(
             f"plan node {type(op).__name__} waits for {_ROADMAP_OPS}"

@@ -23,6 +23,14 @@ Keys in use:
   pair count, once per probe batch);
 - `join_core.<core>`: which join core a build relation took
   (`table_direct`, `table_kr`, `table`, `sorted`);
+- the sort tier's (ops/util.py, ops/sort.py): `sort_core.<packed|
+  lexsort>` (one per argsort), `sort_route.<in_memory|topk|run_merge|
+  host>` (one per SortExec run), `sort_spilled_runs` (runs the run
+  merge spilled), `host_sorts`, and the merge's syncs
+  `d2h_syncs.sort_merge`;
+- the window's (ops/window.py, ops/fused.py): `window_route.window` or
+  `window_route.fused_agg` (one per task), `window_sort_cache_hits`,
+  and its one sync `d2h_syncs.window_span` (the longest partition);
 - `launch.<kernel>`: launches of a hand-written kernel (ops/kernels);
   a launch inside a CUDA graph counts at each replay (`launched`);
 - `graph_captures`, `graph_replays`: CUDA graphs captured and replayed

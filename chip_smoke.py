@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # the full run: 16,777,216 parquet rows
                                      # (q6, select, expr_chain,
                                      # exchange_agg, grace, join_agg,
-                                     # join_kr), 4,194,304 (grouped,
-                                     # repartition, join_sorted)
+                                     # join_kr, window, sort_topk),
+                                     # 4,194,304 (grouped, repartition,
+                                     # join_sorted, sort_full)
     python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
     python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6 and
                                           # select tasks of another
@@ -120,7 +121,34 @@ Phases, one JSON line each:
      300,000 times, max_materialize_rows 200,000: both sides bucket
      through K4, the hot bucket is bucketed again, then joined whole;
      equal to the unbucketed run; its counters printed.
-   The shape of every kernel launch on these paths is noted.
+   Then the window, sort, limit and union tasks (`window_phase`), over a
+   `--rows` file of (item, qty, price, part) drawn as bench.py:880-886
+   draws them:
+   - window: bench.py's window shape (bench.py:1094-1138): keyless
+     SUM(CAST(rk AS DOUBLE)), SUM(run) over row_number and the running
+     SUM(price) per part (1024 partitions) ordered by price descending;
+     it must decode to HostFinalAggExec(FusedWindowAggExec) and launch
+     K1; rksum exact (the sum of n(n+1)/2 over the partitions), runsum
+     within 1e-6 relative of numpy's float64 per-partition cumsums;
+   - sort_topk: ORDER BY price DESC, item LIMIT 100 WHERE qty < 8 over
+     the whole file: the top-k route, K2 compacting the filtered
+     batches; equal to numpy's stable lexsort of the kept rows;
+   - sort_full: ORDER BY qty, price DESC, item over 4,194,304 rows to
+     Arrow, under sort_core scatter (the packed path) and sort (the
+     lexsort path), each equal to numpy's lexsort row for row;
+   - sort_spill: the same over 1,048,576 rows with max_materialize_rows
+     262,144: the run merge over at least 4 spilled runs, equal to the
+     in-memory sort;
+   - union_limit: LIMIT 1000 over a filter over the UNION ALL of two
+     1,048,576-row splits, one task a partition, each equal to
+     pyarrow's filter and slice of its split;
+   - window_all: 1,048,576 rows, every window function and frame kind in
+     one WindowExec (59 outputs) to Arrow, against a numpy oracle:
+     ranking, lag/lead, counts, integer sums and MIN/MAX exact; float
+     SUM/AVG within 1e-9 of the frame's absolute sum.
+   Each prints its route counters and syncs and runs once more under
+   torch.profiler. The shape of every kernel launch on these paths is
+   noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
    phase 3, at every launch shape of phase 4 that phase 3 did not check;
    then K1, K2 and K3 timed at the most launched of those shapes (K2 at
@@ -2255,6 +2283,476 @@ def join_phase(torch, rows: int, sorted_rows_: int, seed: int, kernels):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: the window, sort, limit and union tasks
+# ---------------------------------------------------------------------------
+
+WINDOW_PARTS = 1 << 10  # bench.py's n_part
+WINDOW_ALL_ROWS = 1 << 20
+SORT_FULL_ROWS = 1 << 22
+SPILL_ROWS, SPILL_LIMIT = 1 << 20, 1 << 18
+UNION_SPLIT_ROWS, UNION_LIMIT = 1 << 20, 1000
+TOPK = 100
+
+
+def window_columns(rows: int, seed: int):
+    """(item, qty, price, part) as bench.py:880-886 draws them."""
+    rng = np.random.default_rng(seed)
+    item = rng.integers(0, 1 << 17, rows).astype(np.int32)
+    qty = rng.integers(1, 10, rows).astype(np.int32)
+    price = (rng.random(rows) * 100).astype(np.float32)
+    part = rng.integers(0, WINDOW_PARTS, rows).astype(np.int32)
+    return item, qty, price, part
+
+
+def window_plan(scan):
+    """bench.py's window shape (bench.py:1094-1113) on the port's
+    operators: a keyless SUM of row_number and of the running SUM(price)
+    per part, ordered by price descending."""
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col
+    from blaze_tpu_torch.ops import (
+        AggMode,
+        HashAggregateExec,
+        ProjectExec,
+        SortKey,
+        WindowExec,
+        WindowFn,
+    )
+    from blaze_tpu_torch.types import DataType
+
+    win = WindowExec(
+        ProjectExec(scan, [(Col("part"), "part"), (Col("price"), "price")]),
+        partition_by=[Col("part")],
+        order_by=[SortKey(Col("price"), ascending=False)],
+        functions=[WindowFn("row_number", None, "rk"),
+                   WindowFn("sum", Col("price"), "run",
+                            frame=("rows", None, 0))])
+    return HashAggregateExec(
+        win, keys=[],
+        aggs=[(AggExpr(AggFn.SUM, Col("rk").cast(DataType.float64())),
+               "rksum"),
+              (AggExpr(AggFn.SUM, Col("run")), "runsum")],
+        mode=AggMode.COMPLETE)
+
+
+def window_oracle(part, price):
+    """(rksum, runsum): Σ n_p(n_p+1)/2 exactly, and the sum of the
+    float64 cumsums of each partition in numpy's stable lexsort order by
+    (part, price descending)."""
+    order = np.lexsort((-price.astype(np.float64), part))
+    ps, pr = part[order], price[order].astype(np.float64)
+    starts = np.flatnonzero(np.r_[True, ps[1:] != ps[:-1]])
+    ends = np.r_[starts[1:], len(ps)]
+    runsum = sum(float(np.cumsum(pr[a:b]).sum())
+                 for a, b in zip(starts, ends))
+    sizes = np.bincount(part, minlength=WINDOW_PARTS).astype(np.int64)
+    return float((sizes * (sizes + 1) // 2).sum()), runsum
+
+
+WINDOW_ALL_FRAMES = [None, ("rows", None, 0), ("rows", 2, 1),
+                     ("range", None, 0), ("range", 2, 3)]
+WINDOW_ALL_FNS = [("row_number", None, 1, None), ("rank", None, 1, None),
+                  ("dense_rank", None, 1, None), ("ntile", None, 4, None),
+                  ("percent_rank", None, 1, None),
+                  ("cume_dist", None, 1, None), ("lag", "vi", 1, None),
+                  ("lead", "vf", 2, None), ("lag", "vf", 0, None)] + [
+    (k, s, 1, fr) for k in ("sum", "min", "max", "count", "avg")
+    for s in ("vi", "vf") for fr in WINDOW_ALL_FRAMES]
+
+
+def window_all_columns(rows: int, seed: int):
+    """p (1024 partitions), o (an order key with ties), nullable vi
+    (int32) and vf (float64, no NaN), and the row id."""
+    rng = np.random.default_rng(seed)
+    cols = {"p": rng.integers(0, WINDOW_PARTS, rows).astype(np.int32),
+            "o": rng.integers(0, 200, rows).astype(np.int32),
+            "vi": rng.integers(-1000, 1000, rows).astype(np.int32),
+            "vf": rng.standard_normal(rows) * 100,
+            "rid": np.arange(rows, dtype=np.int32)}
+    valid = {"vi": rng.random(rows) > 0.1, "vf": rng.random(rows) > 0.1}
+    return cols, valid
+
+
+def window_all_plan(scan):
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import SortKey, WindowExec, WindowFn
+
+    return WindowExec(
+        scan, partition_by=[Col("p")], order_by=[SortKey(Col("o"))],
+        functions=[WindowFn(k, None if s is None else Col(s), f"f{i}", off,
+                            fr)
+                   for i, (k, s, off, fr) in enumerate(WINDOW_ALL_FNS)])
+
+
+def _sparse_extreme(x, a, b, fn, neutral):
+    """fn (np.minimum or np.maximum) of x over the spans [a, b] (b < a
+    empty), by a numpy sparse table."""
+    length = np.maximum(b - a + 1, 1)
+    k = np.floor(np.log2(length)).astype(np.int64)
+    k = np.where((1 << (k + 1)) <= length, k + 1, k)
+    k = np.where((1 << k) > length, k - 1, k)
+    out = np.full(len(x), neutral, x.dtype)
+    level, width, j = x.copy(), 1, 0
+    while True:
+        sel = k == j
+        r = b[sel] - width + 1
+        out[sel] = fn(level[a[sel]], level[r])
+        if width >= int(length.max()):
+            break
+        level = fn(level, np.r_[level[width:], np.full(width, neutral,
+                                                       x.dtype)])
+        width <<= 1
+        j += 1
+    return np.where(b >= a, out, neutral)
+
+
+def span_sums(x, s, a, b, starts):
+    """Sums of x over the spans [a, b] inside each row's partition
+    (which starts at s): differences of per-partition cumsums, each
+    partition's own, so a sum's error scales with its partition."""
+    pre = np.concatenate([np.cumsum(x[i:j]) for i, j in
+                          zip(starts, np.r_[starts[1:], len(x)])])
+    before = np.where(a > s, pre[np.maximum(a - 1, 0)], 0)
+    return np.where(b >= a, pre[b] - before, 0)
+
+
+def window_all_oracle(cols, valid):
+    """{output: (values, validity, tolerance scale)} of every function in
+    numpy, over the rows in numpy's stable lexsort order by (p, o); the
+    scale (float sums and averages) is the frame's absolute sum."""
+    order = np.lexsort((cols["o"], cols["p"]))
+    n = len(order)
+    pos = np.arange(n)
+    P, O = cols["p"][order], cols["o"][order]
+    pf = np.r_[True, P[1:] != P[:-1]]
+    rf = pf | np.r_[True, O[1:] != O[:-1]]
+
+    def bounds(flags):
+        st = np.flatnonzero(flags)
+        g = np.cumsum(flags) - 1
+        return st[g], np.r_[st[1:], n][g]
+
+    s, e = bounds(pf)
+    rs, re_ = bounds(rf)
+    starts = np.flatnonzero(pf)
+    size = e - s
+    rn = pos - s + 1
+    rank = rs - s + 1
+    dr = np.cumsum(rf)
+    key = P.astype(np.int64) << 32 | O.astype(np.int64)
+    spans = {
+        None: (s, e - 1), ("rows", None, 0): (s, pos),
+        ("rows", 2, 1): (np.maximum(s, pos - 2), np.minimum(e - 1, pos + 1)),
+        ("range", None, 0): (s, re_ - 1),
+        ("range", 2, 3): (np.searchsorted(key, key - 2, "left"),
+                          np.searchsorted(key, key + 3, "right") - 1)}
+    src = {k: (cols[k][order], valid[k][order]) for k in ("vi", "vf")}
+    out = {}
+    for i, (kind, name, off, frame) in enumerate(WINDOW_ALL_FNS):
+        ok = np.ones(n, bool)
+        scale = None
+        if kind == "row_number":
+            v = rn
+        elif kind == "rank":
+            v = rank
+        elif kind == "dense_rank":
+            v = dr - dr[s] + 1
+        elif kind == "ntile":
+            base, rem = size // off, size % off
+            cut = rem * (base + 1)
+            v = np.where(rn <= cut, (rn - 1) // (base + 1),
+                         rem + (rn - 1 - cut) // np.maximum(base, 1)) + 1
+        elif kind == "percent_rank":
+            v = np.where(size > 1, (rank - 1) / np.maximum(size - 1, 1), 0.0)
+        elif kind == "cume_dist":
+            v = (re_ - s) / size
+        elif kind in ("lag", "lead"):
+            x, m = src[name]
+            j = pos - off if kind == "lag" else pos + off
+            inside = (j >= s) & (j < e)
+            jc = np.clip(j, 0, n - 1)
+            v, ok = x[jc], inside & m[jc]
+        else:
+            x, m = src[name]
+            a, b = spans[frame]
+            cnt = np.r_[0, np.cumsum(m)]
+            c = np.where(b >= a, cnt[b + 1] - cnt[a], 0)
+            if kind == "count":
+                v = c
+            elif kind in ("min", "max"):
+                fn = np.minimum if kind == "min" else np.maximum
+                neutral = (np.inf if kind == "min" else -np.inf) \
+                    if x.dtype.kind == "f" else \
+                    (np.iinfo(x.dtype).max if kind == "min"
+                     else np.iinfo(x.dtype).min)
+                v = _sparse_extreme(np.where(m, x, neutral), a, b, fn,
+                                    neutral)
+                ok = c > 0
+            else:
+                wide = np.int64 if x.dtype.kind == "i" else np.float64
+                xz = np.where(m, x, 0).astype(wide)
+                tot = span_sums(xz, s, a, b, starts)
+                scale = span_sums(np.abs(xz.astype(np.float64)), s, a, b,
+                                  starts)
+                ok = c > 0
+                if kind == "sum":
+                    v = tot
+                    if x.dtype.kind == "i":
+                        scale = None
+                else:
+                    v = tot / np.maximum(c, 1)
+                    scale = scale / np.maximum(c, 1)
+        out[f"f{i}"] = (np.asarray(v), ok, scale)
+    return order, out
+
+
+def check_window_all(table, cols, valid):
+    """Every output against the numpy oracle: ranking, lag/lead, counts,
+    integer sums and MIN/MAX exactly; float sums and averages within
+    1e-9 of the frame's absolute sum (per row for averages). Returns the
+    largest float error, so scaled."""
+    order, want = window_all_oracle(cols, valid)
+    rid = table.column("rid").to_numpy()
+    if not np.array_equal(rid, order.astype(np.int32)):
+        raise AssertionError("window_all: rows not in numpy's stable "
+                             "lexsort order")
+    worst = 0.0
+    for name, (v, ok, scale) in want.items():
+        col = table.column(name).combine_chunks()
+        got_ok = ~np.asarray(col.is_null())
+        if not np.array_equal(got_ok, ok):
+            raise AssertionError(f"window_all {name}: validity differs")
+        got = col.fill_null(0).to_numpy(zero_copy_only=False)[ok]
+        exp = v[ok]
+        if scale is None:
+            if not np.array_equal(got, exp.astype(got.dtype)):
+                raise AssertionError(f"window_all {name}: values differ")
+            continue
+        err = np.abs(got - exp) / np.maximum(scale[ok], 1e-300)
+        worst = max(worst, float(err.max(initial=0.0)))
+        if worst > 1e-9:
+            raise AssertionError(f"window_all {name}: error {worst}")
+    return worst
+
+
+def sort_plan(scan, keys, fetch=None, where=None):
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import FilterExec, SortExec, SortKey
+
+    if where is not None:
+        scan = FilterExec(scan, where)
+    return SortExec(scan, [SortKey(Col(n), asc, True) for n, asc in keys],
+                    fetch=fetch)
+
+
+FULL_KEYS = [("qty", True), ("price", False), ("item", True)]
+
+
+def sorted_rows(item, qty, price):
+    """numpy's stable lexsort by FULL_KEYS."""
+    return np.lexsort((item, -price.astype(np.float64), qty))
+
+
+def same_rows(table, item, qty, price, order, task: str) -> None:
+    for name, col in (("item", item), ("qty", qty), ("price", price)):
+        got = table.column(name).to_numpy()
+        if not np.array_equal(got, col[order]):
+            raise AssertionError(f"{task}: column {name} differs from "
+                                 "numpy's lexsort order")
+
+
+def window_phase(torch, rows: int, seed: int, kernels):
+    """window, window_all, sort_topk, sort_full (both sort cores),
+    sort_spill and union_limit through execute_task."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.config import EngineConfig, get_config, set_config
+    from blaze_tpu_torch.exprs.ir import Col, Literal
+    from blaze_tpu_torch.ops import (
+        FileRange,
+        FilterExec,
+        LimitExec,
+        ParquetScanExec,
+        UnionExec,
+    )
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.fused import FusedWindowAggExec, HostFinalAggExec
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.executor import decode_task, execute_task
+    from blaze_tpu_torch.types import DataType
+
+    work = os.path.join(REPO, "build", "chip_smoke_window")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    results = {}
+
+    def scan(p, cols=None):
+        return ParquetScanExec([[FileRange(p)]], None, cols)
+
+    def counted(task, blob, n, ctx=None, **extra):
+        """Run a task, print its path line, profile it once more."""
+        def run():
+            return list(execute_task(blob, ctx or ExecContext(
+                device="cuda")))
+        out, wall, launches, transfers = run_counted(torch, run, kernels)
+        routes = {k: v for k, v in transfers.items()
+                  if k.split(".")[0] in ("sort_route", "sort_core",
+                                         "window_route", "sort_spilled_runs",
+                                         "host_sorts")}
+        path_line(task, n, wall, launches, transfers,
+                  syncs=transfers.get("d2h_syncs", 0), routes=routes,
+                  **extra)
+        profile_run(torch, run, task, wall)
+        results[task] = {"launches": launches, "wall_s": wall}
+        return pa.Table.from_batches(out) if out else None, launches, \
+            transfers
+
+    try:
+        t0 = time.perf_counter()
+        big = os.path.join(work, "store_sales_window.parquet")
+        item, qty, price, part = window_columns(rows, seed)
+        pq.write_table(pa.table({"item": item, "qty": qty, "price": price,
+                                 "part": part}), big, compression="zstd",
+                       row_group_size=1 << 20)
+        write_s = time.perf_counter() - t0
+
+        # window: bench.py's shape, whole-task fused
+        blob = task_to_proto(window_plan(scan(big)), 0)
+        op, _ = decode_task(blob, ExecContext(device="cuda"))
+        if not (isinstance(op, HostFinalAggExec)
+                and isinstance(op.children[0], FusedWindowAggExec)):
+            raise AssertionError(f"window: decoded as {op.display()}")
+        t0 = time.perf_counter()
+        rk_want, run_want = window_oracle(part, price)
+        oracle_s = time.perf_counter() - t0
+        table, launches, transfers = counted(
+            "window", blob, rows, parquet_write_s=write_s,
+            oracle_s=oracle_s, plan=op.display().splitlines()[:2])
+        rk, run = table.column("rksum")[0].as_py(), \
+            table.column("runsum")[0].as_py()
+        run_err = abs(run - run_want) / run_want
+        if rk != rk_want or run_err > 1e-6:
+            raise AssertionError(f"window: rksum {rk} vs {rk_want}, runsum "
+                                 f"{run} vs {run_want} ({run_err})")
+        if transfers.get("window_route.fused_agg") != 1 \
+                or launches["masked_stats"] <= 0 \
+                or launches["compact_perm"] <= 0:
+            raise AssertionError("window: not FusedWindowAggExec with K1 "
+                                 "and K2")
+        emit({"phase": "window_check", "task": "window", "rksum": rk,
+              "rksum_oracle": rk_want, "runsum": run,
+              "runsum_oracle": run_want, "runsum_rel_err": run_err,
+              "tolerance": "rksum exact; runsum 1e-6 relative of the "
+                           "float64 per-partition cumsums"})
+
+        # sort_topk: ORDER BY price DESC, item LIMIT 100 WHERE qty < 8
+        where = Col("qty") < Literal(8, DataType.int32())
+        blob = task_to_proto(sort_plan(
+            scan(big, ["item", "qty", "price"]),
+            [("price", False), ("item", True)], TOPK, where), 0)
+        limit = min(1 << 22, rows // 4)  # the default at full size
+        table, launches, transfers = counted(
+            "sort_topk", blob, rows, ctx=ExecContext(
+                device="cuda", config=EngineConfig(
+                    max_materialize_rows=limit)),
+            max_materialize_rows=limit)
+        kept = np.flatnonzero(qty < 8)
+        top = kept[np.lexsort((item[kept],
+                               -price[kept].astype(np.float64)))[:TOPK]]
+        same_rows(table, item, qty, price, top, "sort_topk")
+        if transfers.get("sort_route.topk") != 1 \
+                or launches["compact_perm"] <= 0:
+            raise AssertionError("sort_topk: not the top-k route with K2")
+
+        # sort_full: ORDER BY qty, price DESC, item over 4,194,304 rows
+        n = min(rows, SORT_FULL_ROWS)
+        full = os.path.join(work, "sort_full.parquet")
+        write_parquet(full, item[:n], qty[:n], price[:n])
+        order = sorted_rows(item[:n], qty[:n], price[:n])
+        blob = task_to_proto(sort_plan(scan(full), FULL_KEYS), 0)
+        saved = get_config()
+        try:
+            for core in ("scatter", "sort"):
+                set_config(EngineConfig(sort_core=core))
+                table, _, transfers = counted(f"sort_full_{core}", blob, n,
+                                              sort_core=core)
+                same_rows(table, item, qty, price, order,
+                          f"sort_full_{core}")
+                want = "packed" if core == "scatter" else "lexsort"
+                if transfers.get(f"sort_core.{want}", 0) <= 0:
+                    raise AssertionError(f"sort_full: core {want} not run")
+        finally:
+            set_config(saved)
+
+        # sort_spill: the run merge past max_materialize_rows
+        n = min(rows, SPILL_ROWS)
+        spill = os.path.join(work, "sort_spill.parquet")
+        write_parquet(spill, item[:n], qty[:n], price[:n])
+        blob = task_to_proto(sort_plan(scan(spill), FULL_KEYS), 0)
+        table, _, transfers = counted(
+            "sort_spill", blob, n, ctx=ExecContext(
+                device="cuda", config=EngineConfig(
+                    max_materialize_rows=SPILL_LIMIT)),
+            max_materialize_rows=SPILL_LIMIT)
+        whole = pa.Table.from_batches(list(execute_task(
+            blob, ExecContext(device="cuda"))))
+        if not table.equals(whole):
+            raise AssertionError("sort_spill: differs from the in-memory "
+                                 "sort")
+        if transfers.get("sort_spilled_runs", 0) < 4:
+            raise AssertionError(f"sort_spill: {transfers}")
+
+        # union_limit: UNION ALL of two splits, LIMIT 1000 over a filter
+        splits = []
+        split_rows = min(UNION_SPLIT_ROWS, rows // 2)
+        for i in range(2):
+            a, b = i * split_rows, (i + 1) * split_rows
+            p = os.path.join(work, f"split{i}.parquet")
+            write_parquet(p, item[a:b], qty[a:b], price[a:b])
+            splits.append(p)
+        plan = LimitExec(FilterExec(
+            UnionExec([scan(p) for p in splits]),
+            Col("qty") < Literal(5, DataType.int32())), UNION_LIMIT)
+        for i, p in enumerate(splits):
+            table, launches, _ = counted(f"union_limit_{i}",
+                                         task_to_proto(plan, i),
+                                         split_rows, partition=i)
+            tbl = pq.read_table(p)
+            want = tbl.filter(pc.less(tbl.column("qty"), 5)).slice(
+                0, UNION_LIMIT)
+            if not table.equals(want.combine_chunks().cast(table.schema)):
+                raise AssertionError(f"union_limit partition {i} differs "
+                                     "from pyarrow")
+            if launches["compact_perm"] <= 0:
+                raise AssertionError("union_limit did not launch K2")
+
+        # window_all: every function and frame, output to Arrow
+        n = min(rows, WINDOW_ALL_ROWS)
+        cols, valid = window_all_columns(n, seed)
+        wpath = os.path.join(work, "window_all.parquet")
+        pq.write_table(pa.table({
+            k: pa.array(v, mask=None if k not in valid else ~valid[k])
+            for k, v in cols.items()}), wpath, compression="zstd")
+        blob = task_to_proto(window_all_plan(scan(wpath)), 0)
+        table, _, transfers = counted("window_all", blob, n,
+                                      functions=len(WINDOW_ALL_FNS))
+        t0 = time.perf_counter()
+        worst = check_window_all(table, cols, valid)
+        emit({"phase": "window_check", "task": "window_all",
+              "functions": len(WINDOW_ALL_FNS), "float_max_err": worst,
+              "oracle_s": time.perf_counter() - t0,
+              "tolerance": "ranking, lag/lead, counts, integer sums, "
+                           "MIN/MAX exact; float SUM/AVG within 1e-9 of "
+                           "the frame's absolute sum"})
+        if transfers.get("window_route.window") != 1:
+            raise AssertionError("window_all: not WindowExec")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def time_tree(torch, tree: str, rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
@@ -2527,6 +3025,7 @@ def main() -> int:
         res.update(exchange_phase(torch, args.rows, args.seed, kernels))
         res.update(join_phase(torch, args.rows, args.grouped_rows,
                               args.seed, kernels))
+        res.update(window_phase(torch, args.rows, args.seed, kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check, then timed at the most
@@ -2587,7 +3086,10 @@ def main() -> int:
     main_t["murmur3"] = k4_times[0]
     # K4's hashes at join_sorted's probe batch: 16,384 int32 keys
     main_t["murmur3_hashes"] = k4h_times[0]
+    # this slice's tasks: their launches are added to each kernel's
     summary = []
+    slice_tasks = [t for t in res if t.startswith(("window", "sort_",
+                                                   "union_limit"))]
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
          "blaze_tpu/ops/kernels/stats_pallas.py:75", "q6", k1_err),
@@ -2602,9 +3104,12 @@ def main() -> int:
          "blaze_tpu/ops/kernels/murmur3_pallas.py:104", "join_sorted", 0),
     ):
         t = main_t[name]
+        by_task = {k: res[k]["launches"][name] for k in [task] + slice_tasks
+                   if k == task or res[k]["launches"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": res[task]["launches"][name],
+            "replaces": replaces, "launches": sum(by_task.values()),
+            "launches_by_task": by_task,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

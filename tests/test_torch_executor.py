@@ -180,9 +180,17 @@ def test_port_blob_runs_in_jax(tmp_path):
 
 
 def test_unported_plan_node_raises(tmp_path):
+    """Every plan arm decodes now; range partitioning is what the port
+    still refuses, naming its ROADMAP item."""
+    from blaze_tpu.ops import ShuffleWriterExec as JShuffleWriter
+
     path = _write(tmp_path / "ss.parquet", rows=100)
     blob = jax_task_to_proto(
-        JSort(JScan([[JRange(path)]]), [JSortKey(JCol("qty"))]), 0)
+        JShuffleWriter(JSort(JScan([[JRange(path)]]),
+                             [JSortKey(JCol("qty"))]),
+                       [JCol("qty")], 2, str(tmp_path / "d"),
+                       str(tmp_path / "i"), mode="range",
+                       range_bounds=[(5,)], sort_ascending=[True]), 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         execute_task(blob, ExecContext(device="cpu"))
 
