@@ -16,16 +16,21 @@ A scan's batches are `PackedColumnBatch`es: every buffer a view of one
 device byte buffer that crossed in one H2D copy (runtime/pack.py).
 `to_arrow` fetches a batch's buffers in one D2H copy.
 
-This slice carries fixed-width types only: bool, int8-64, float32/64,
-date32, timestamp_us and decimal(<=18) as unscaled int64. Strings
-(dictionary codes) and wide decimals raise NotImplementedError at the
-host boundary.
+Types: bool, int8-64, float32/64, date32, timestamp_us, decimal(<=18)
+as unscaled int64, and utf8/binary as int32 dictionary codes on the
+device with a host pyarrow dictionary beside them (`Column.dictionary`),
+as the JAX package carries strings (blaze_tpu/batch.py). Device compute
+sees only codes; codes of two batches compare only after
+`ops/util.unify_dictionaries`. A padded row's code indexes nothing, and
+a NULL row's code is 0 whatever the dictionary holds. Wide decimals
+raise NotImplementedError at the host boundary.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import weakref
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,16 +66,85 @@ def default_device() -> torch.device:
 
 
 def check_fixed_width(dt: DataType) -> None:
-    if dt.is_string_like:
-        raise NotImplementedError(
-            f"{dt} columns: dictionary-encoded strings wait for ROADMAP "
-            "'Modules to port': expressions and types"
-        )
+    """Refuse decimal(>18): its 128-bit limbs wait for item 3's rest."""
     if dt.is_wide_decimal:
         raise NotImplementedError(
             f"{dt} columns: decimal128 limbs wait for ROADMAP "
-            "'Modules to port': expressions and types"
+            "'Modules to port' item 3 (decimal128)"
         )
+
+
+def string_value_type(dt: DataType):
+    """The Arrow type of a string-like column's dictionary values."""
+    import pyarrow as pa
+
+    return pa.binary() if dt.id is TypeId.BINARY else pa.utf8()
+
+
+# dictionaries known to hold each value once (made by dictionary_encode
+# or by a unification), by identity; an entry leaves with its array
+_UNIQUE: dict = {}
+
+
+def mark_unique(dictionary):
+    """Note that `dictionary` holds each value once; returns it."""
+    key = id(dictionary)
+    _UNIQUE[key] = weakref.ref(dictionary,
+                               lambda _r, key=key: _UNIQUE.pop(key, None))
+    return dictionary
+
+
+def is_unique(dictionary) -> bool:
+    """Whether a dictionary holds each value once: known by identity,
+    else checked on the host (and then known)."""
+    import pyarrow.compute as pc
+
+    ref = _UNIQUE.get(id(dictionary))
+    if ref is not None and ref() is dictionary:
+        return True
+    if len(pc.unique(dictionary)) == len(dictionary):
+        mark_unique(dictionary)
+        return True
+    return False
+
+
+def encode_strings(arr, dt: DataType):
+    """(int32 codes with NULL rows at 0, dictionary) of a string-like
+    Arrow array: a dictionary array keeps its own dictionary (which may
+    repeat a value), any other is dictionary-encoded here. large_string
+    and large_binary dictionaries narrow to utf8 and binary."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if isinstance(arr, pa.ChunkedArray):
+        if pa.types.is_dictionary(arr.type):
+            arr = arr.unify_dictionaries()
+        arr = arr.combine_chunks()
+    encoded = not pa.types.is_dictionary(arr.type)
+    if encoded:
+        arr = pc.dictionary_encode(arr)
+    dictionary = arr.dictionary.cast(string_value_type(dt))
+    if encoded:
+        mark_unique(dictionary)
+    codes = arr.indices.fill_null(0).to_numpy(zero_copy_only=False)
+    return np.ascontiguousarray(codes, dtype=np.int32), dictionary
+
+
+def decode_strings(codes: np.ndarray, null: Optional[np.ndarray],
+                   dictionary, dt: DataType):
+    """The Arrow array of codes through their dictionary; `null` marks
+    NULL rows, whose codes are not read. A column with no dictionary
+    (a pruned placeholder, an all-NULL side) renders as NULLs, as the
+    JAX package's `to_arrow` renders it."""
+    import pyarrow as pa
+
+    typ = string_value_type(dt)
+    if dictionary is None:
+        return pa.nulls(len(codes), type=typ)
+    codes = np.asarray(codes, dtype=np.int32)
+    if null is not None:
+        codes = np.where(null, 0, codes)
+    return dictionary.cast(typ).take(pa.array(codes, mask=null))
 
 
 @dataclasses.dataclass
@@ -80,6 +154,7 @@ class Column:
     dtype: DataType
     values: torch.Tensor  # physical dtype, shape (capacity,)
     validity: Optional[torch.Tensor] = None  # bool (capacity,) or None
+    dictionary: Optional[object] = None  # pyarrow Array for utf8/binary
 
     @property
     def capacity(self) -> int:
@@ -132,15 +207,38 @@ class ColumnBatch:
         n = rb.num_rows
         cap = capacity or get_config().bucket_for(n)
         cols: List[Column] = []
-        for field, (vals, valid) in zip(schema, host):
+        for field, (vals, valid, d) in zip(schema, host):
             values = _h2d(_pad(vals, cap, 0), device)
             validity = None
             if valid is not None:
                 # padding rows stay valid, but for the NULL type
                 fill = field.dtype.id is not TypeId.NULL
                 validity = _h2d(_pad(valid, cap, fill), device)
-            cols.append(Column(field.dtype, values, validity))
+            cols.append(Column(field.dtype, values, validity, d))
         return ColumnBatch(schema, cols, n)
+
+    @staticmethod
+    def from_arrow_pruned(rb, schema: Schema, present: Sequence[int],
+                          capacity: Optional[int] = None,
+                          device: Optional[torch.device] = None
+                          ) -> "ColumnBatch":
+        """A batch with `schema`'s positions from a RecordBatch holding
+        only the columns at `present` (ascending). Pruned positions get
+        zero placeholders, never decoded nor copied, for columns no
+        consumer reads (the JAX package's `from_arrow_pruned`)."""
+        sub = ColumnBatch.from_arrow(rb, capacity, device)
+        cap = sub.capacity if sub.columns else (
+            capacity or get_config().bucket_for(rb.num_rows))
+        dev = sub.device if sub.columns else (
+            torch.device(device) if device is not None
+            else default_device())
+        pres = set(present)
+        it = iter(sub.columns)
+        cols = [next(it) if i in pres else
+                Column(f.dtype, torch.zeros(cap, dtype=torch_dtype(f.dtype),
+                                            device=dev))
+                for i, f in enumerate(schema)]
+        return ColumnBatch(schema, cols, rb.num_rows)
 
     def to_arrow(self):
         """Materialize the live rows back to a pyarrow RecordBatch: the
@@ -163,13 +261,16 @@ class ColumnBatch:
         sel = next(host) if self.selection is not None else None
         arrays = []
         fields = []
-        for field, vals, mask in zip(self.schema, values, masks):
+        for field, col, vals, mask in zip(self.schema, self.columns, values,
+                                          masks):
             dt = field.dtype
             if sel is not None:
                 vals = vals[sel]
                 if mask is not None:
                     mask = mask[sel]
-            if dt.id is TypeId.DECIMAL:
+            if dt.is_string_like:
+                arr = decode_strings(vals, mask, col.dictionary, dt)
+            elif dt.id is TypeId.DECIMAL:
                 arr = _decimal_from_unscaled_i64(
                     vals.astype(np.int64), mask, dt.precision, dt.scale)
             elif dt.id is TypeId.DATE32:
@@ -185,6 +286,30 @@ class ColumnBatch:
             arrays.append(arr)
             fields.append(pa.field(field.name, arr.type, field.nullable))
         return pa.RecordBatch.from_arrays(arrays, schema=pa.schema(fields))
+
+    @staticmethod
+    def from_pydict(data: dict, schema: Optional[Schema] = None,
+                    capacity: Optional[int] = None,
+                    device: Optional[torch.device] = None
+                    ) -> "ColumnBatch":
+        """Test and interop helper: build from {name: list} via
+        pyarrow."""
+        import pyarrow as pa
+
+        from blaze_tpu_torch.types import to_arrow_schema
+
+        rb = pa.RecordBatch.from_pydict(
+            data, schema=None if schema is None else to_arrow_schema(schema))
+        return ColumnBatch.from_arrow(rb, capacity, device)
+
+    def to_pydict(self) -> dict:
+        return self.to_arrow().to_pydict()
+
+    def slice_host(self, start: int, length: int) -> "ColumnBatch":
+        """Host-side row slice (strings re-encode with a dictionary of
+        the slice's own values)."""
+        rb = self.to_arrow().slice(start, length)
+        return ColumnBatch.from_arrow(rb, device=self.device)
 
 
 @dataclasses.dataclass
@@ -216,27 +341,28 @@ class PackedColumnBatch(ColumnBatch):
         n = rb.num_rows
         cap = capacity or get_config().bucket_for(n)
         segments = []
-        for field, (vals, valid) in zip(schema, host):
+        for field, (vals, valid, _) in zip(schema, host):
             segments.append((vals, 0))
             if valid is not None:
                 segments.append((valid, field.dtype.id is not TypeId.NULL))
         buf, views = put_packed(segments, n, cap, device, staging)
         it = iter(views)
         cols = []
-        for field, (_, valid) in zip(schema, host):
+        for field, (_, valid, d) in zip(schema, host):
             values = next(it)
             cols.append(Column(field.dtype, values,
-                               next(it) if valid is not None else None))
+                               next(it) if valid is not None else None, d))
         key = (cap, tuple((str(c.values.dtype), c.validity is not None)
                           for c in cols))
         return PackedColumnBatch(schema, cols, n, None, buf, key)
 
 
 def host_columns(rb):
-    """(schema, [(values, validity or None)]) of a RecordBatch as host
-    numpy arrays of the live rows: values in the physical dtype, NULLs
-    filled, validity only for a column with NULLs (all False for the
-    NULL type)."""
+    """(schema, [(values, validity or None, dictionary or None)]) of a
+    RecordBatch as host numpy arrays of the live rows: values in the
+    physical dtype (dictionary codes for strings), NULLs filled,
+    validity only for a column with NULLs (all False for the NULL
+    type)."""
     import pyarrow as pa
 
     schema = from_arrow_schema(rb.schema)
@@ -247,10 +373,15 @@ def host_columns(rb):
         check_fixed_width(dt)
         arr = rb.column(i)
         if isinstance(arr, pa.ChunkedArray):
+            if pa.types.is_dictionary(arr.type):
+                arr = arr.unify_dictionaries()
             arr = arr.combine_chunks()
         has_nulls = arr.null_count > 0
         valid = ~np.asarray(arr.is_null()) if has_nulls else None
-        if dt.id is TypeId.DECIMAL:
+        dictionary = None
+        if dt.is_string_like:
+            np_vals, dictionary = encode_strings(arr, dt)
+        elif dt.id is TypeId.DECIMAL:
             np_vals = _decimal_unscaled_i64(arr)
         elif dt.id is TypeId.TIMESTAMP_US:
             np_vals = arr.cast(pa.timestamp("us")).fill_null(0) \
@@ -268,7 +399,8 @@ def host_columns(rb):
                 arr = arr.fill_null(
                     False if dt.id is TypeId.BOOL else 0)
             np_vals = arr.to_numpy(zero_copy_only=False)
-        out.append((np_vals.astype(dt.physical_dtype(), copy=False), valid))
+        out.append((np_vals.astype(dt.physical_dtype(), copy=False), valid,
+                    dictionary))
     return schema, out
 
 
@@ -284,6 +416,8 @@ def _pad(a: np.ndarray, cap: int, fill) -> np.ndarray:
 
 
 def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    if not a.flags.writeable:
+        a = a.copy()  # a pyarrow zero-copy view: torch wants its own
     t = torch.from_numpy(a)
     if device.type == "cpu":
         return t

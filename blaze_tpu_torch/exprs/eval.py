@@ -21,9 +21,10 @@ spells the result out, because torch on CUDA leaves it undefined:
 - shifts by >= the bit width give 0 (<<) or the sign fill (>>).
 
 Every literal takes its dtype from the IR (`infer_dtype`), never from
-torch's defaults. Strings, wide decimals and the string, hash and
-time-of-day scalar functions raise NotImplementedError naming the
-ROADMAP item that brings them.
+torch's defaults. A node with a string input, and a cast to a string,
+never reach this evaluator: ops/host_lower.py evaluates them on the host
+first (exprs/host_eval.py). Wide decimals raise NotImplementedError
+naming the ROADMAP item that brings them.
 
 Every operation here is an eager torch op with no host sync, so a
 batch's whole evaluation can be captured in a CUDA graph (ops/fused.py).
@@ -47,6 +48,7 @@ from blaze_tpu_torch.exprs.typing import infer_dtype, promote
 CV = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (values, validity|None)
 
 _ROADMAP_EXPRS = "ROADMAP 'Modules to port': expressions and types"
+_ROADMAP_DECIMAL = "ROADMAP 'Modules to port' item 3 (decimal128)"
 
 
 def and_validity(a: Optional[torch.Tensor],
@@ -137,11 +139,13 @@ class DeviceEvaluator:
 
     # ------------------------------------------------------------------
     def _literal(self, e: ir.Literal) -> CV:
-        if e.dtype is not None and (
-            e.dtype.is_string_like or e.dtype.is_wide_decimal
-        ):
+        if e.dtype is not None and e.dtype.is_string_like:
             raise NotImplementedError(
-                f"{e.dtype} literals wait for {_ROADMAP_EXPRS}"
+                f"{e.dtype} literals are lowered on the host "
+                "(ops/host_lower.py) before device evaluation")
+        if e.dtype is not None and e.dtype.is_wide_decimal:
+            raise NotImplementedError(
+                f"{e.dtype} literals wait for {_ROADMAP_DECIMAL}"
             )
         if e.value is None:
             # zeros carry the literal's PHYSICAL dtype (see the JAX
@@ -157,9 +161,13 @@ class DeviceEvaluator:
         if src == dst:
             return v, m
         for t in (src, dst):
-            if t.is_string_like or t.is_wide_decimal:
+            if t.is_string_like:
                 raise NotImplementedError(
-                    f"cast {src} -> {dst} waits for {_ROADMAP_EXPRS}"
+                    f"cast {src} -> {dst} is lowered on the host "
+                    "(ops/host_lower.py) before device evaluation")
+            if t.is_wide_decimal:
+                raise NotImplementedError(
+                    f"cast {src} -> {dst} waits for {_ROADMAP_DECIMAL}"
                 )
         if src.id is TypeId.DECIMAL and dst.id is TypeId.DECIMAL:
             # rescale unscaled i64 by 10^(dst.scale - src.scale)
@@ -224,7 +232,7 @@ class DeviceEvaluator:
     def _compare(self, op, lv, rv, lt, rt, m) -> CV:
         if lt.is_wide_decimal or rt.is_wide_decimal:
             raise NotImplementedError(
-                f"decimal(>18) comparison waits for {_ROADMAP_EXPRS}"
+                f"decimal(>18) comparison waits for {_ROADMAP_DECIMAL}"
             )
         ct = promote(lt, rt) if lt != rt else lt
         phys = torch_dtype(ct)
@@ -274,7 +282,7 @@ class DeviceEvaluator:
         if lt.is_wide_decimal or rt.is_wide_decimal or \
                 out_t.is_wide_decimal:
             raise NotImplementedError(
-                f"decimal(>18) arithmetic waits for {_ROADMAP_EXPRS}"
+                f"decimal(>18) arithmetic waits for {_ROADMAP_DECIMAL}"
             )
 
         def unscaled(v, t):
@@ -405,6 +413,15 @@ class DeviceEvaluator:
         only where x is NaN; pmod by a negative divisor is
         ((a % n) + n) % n; null_if counts NaN equal to NaN."""
         n = e.name
+        if n in _TIME_FNS:
+            v, m = self._eval(e.args[0])
+            return _time_fn(n, v, infer_dtype(e.args[0], self.schema)), m
+        if n in ("hash", "murmur3_hash"):
+            return self._hash(e)
+        if n in _HOST_FNS:
+            raise NotImplementedError(
+                f"scalar function {n!r} is evaluated on the host "
+                "(ops/host_lower.py, exprs/host_eval.py)")
         if n not in _SCALAR_FNS:
             raise NotImplementedError(
                 f"scalar function {n!r} waits for {_ROADMAP_EXPRS}")
@@ -470,6 +487,19 @@ class DeviceEvaluator:
         if n in ("ceil", "floor") and src_t.is_integer:
             return vs[0], m
         return _convert(_SIMPLE_FNS[n](*vs), out_t), m
+
+    def _hash(self, e: ir.ScalarFn) -> CV:
+        """Spark's `hash(...)`: murmur3 (seed 42) chained over the
+        arguments, a NULL argument leaving the running hash as it was;
+        never NULL. String arguments are hashed on the host
+        (exprs/host_eval.py)."""
+        from blaze_tpu_torch.exprs.hashing import hash_columns_device
+
+        cols = []
+        for a in e.args:
+            v, m = self._eval(a)
+            cols.append((v, m, infer_dtype(a, self.schema)))
+        return hash_columns_device(cols, self.capacity), None
 
     def _extreme_of(self, n: str, args: List[CV], out_t: DataType) -> CV:
         """greatest/least: NULL operands are skipped, NULL only when all
@@ -794,6 +824,46 @@ def _trunc_date(fmt: str, days32: torch.Tensor) -> torch.Tensor:
         return (d - torch.remainder(d + 3, 7)).to(torch.int32)
     raise NotImplementedError(
         f"trunc_date {fmt!r} waits for {_ROADMAP_EXPRS}")
+
+
+_TIME_FNS = ("hour", "minute", "second", "weekofyear", "to_date")
+# the string family: exprs/host_eval.py evaluates these
+_HOST_FNS = frozenset((
+    "lower", "upper", "trim", "ltrim", "rtrim", "length", "char_length",
+    "reverse", "starts_with", "ends_with", "contains", "like", "substring",
+    "concat", "replace", "octet_length", "md5", "sha224", "sha256",
+    "sha384", "sha512"))
+_US_PER_DAY = 86_400_000_000
+
+
+def _time_fn(n: str, v: torch.Tensor, src: DataType) -> torch.Tensor:
+    """hour/minute/second of a timestamp (UTC; a date is its midnight),
+    weekofyear (ISO 8601 weeks, Monday first) and to_date of a date or a
+    timestamp, as Spark computes them with a UTC session time zone."""
+    if src.id is TypeId.TIMESTAMP_US:
+        us = v.to(torch.int64)
+        days = torch.div(us, _US_PER_DAY, rounding_mode="floor")
+    elif src.id is TypeId.DATE32:
+        days = v.to(torch.int64)
+        us = days * _US_PER_DAY
+    else:
+        raise NotImplementedError(f"{n} of {src}")
+    if n == "to_date":
+        return days.to(torch.int32)
+    if n == "weekofyear":
+        # the ISO week's Thursday decides its year (1970-01-01 was a
+        # Thursday: Monday-based weekday (d + 3) mod 7)
+        thu = days - torch.remainder(days + 3, 7) + 3
+        y = _date_part("year", thu.to(torch.int32)).to(torch.int64)
+        one = torch.ones_like(y)
+        jan1 = _days_from_civil(y, one, one).to(torch.int64)
+        return (_floordiv(thu - jan1, 7) + 1).to(torch.int32)
+    secs = torch.div(us, 1_000_000, rounding_mode="floor")
+    if n == "hour":
+        return torch.remainder(_floordiv(secs, 3600), 24).to(torch.int32)
+    if n == "minute":
+        return torch.remainder(_floordiv(secs, 60), 60).to(torch.int32)
+    return torch.remainder(secs, 60).to(torch.int32)
 
 
 def _date_part(part: str, days32: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ Two implementations of the same function:
 - numpy (`_np_*`, `hash_int_host`, `hash_long_host`, `hash_bytes_host`):
   the host twins, the port's own oracle.
 
+Strings and binary hash on the host, from their real bytes
+(`hash_rows_host`, the JAX package's function of that name): Spark's
+`hashUnsafeBytes` of each row's UTF-8 bytes, through the C++ chain of
+runtime/native.py; `hash_bytes_host` is its pure-Python plain version.
+
 Per type, as Spark does it: bool, int8, int16, int32 and date32 hash as
 `hashInt` of the sign-extended int; int64, timestamp_us and decimal(<=18)
 (the unscaled value) as `hashLong`; float32 as `hashInt(floatToIntBits)`
@@ -48,8 +53,6 @@ _M32 = 0xFFFFFFFF
 F32_NAN_BITS = 0x7FC00000
 F64_NAN_BITS = 0x7FF8000000000000
 
-_ROADMAP_STRINGS = ("ROADMAP 'Modules to port' item 3 (dictionary-encoded "
-                    "strings)")
 _ROADMAP_DECIMAL = ("ROADMAP 'Modules to port' item 3 (decimal128 "
                     "limbs)")
 
@@ -71,7 +74,8 @@ def check_hashable(dtype: DataType) -> None:
     """Raise NotImplementedError for a key type the port cannot hash."""
     if dtype.is_string_like:
         raise NotImplementedError(
-            f"murmur3 of {dtype} keys waits for {_ROADMAP_STRINGS}")
+            f"murmur3 of {dtype} keys runs on the host (hash_rows_host), "
+            "not on the device")
     if dtype.is_wide_decimal:
         raise NotImplementedError(
             f"murmur3 of {dtype} keys waits for {_ROADMAP_DECIMAL}")
@@ -253,3 +257,92 @@ def hash_bytes_host(data: bytes, seed: int = SPARK_SEED) -> int:
         sb = b - 256 if b >= 128 else b  # a Java byte
         h1 = _np_mix_h1(h1, _np_mix_k1(np.uint32(sb & _M32)))
     return int(_np_fmix(h1, n))
+
+
+def hash_strings_py(values, seeds: np.ndarray) -> np.ndarray:
+    """The plain version of the C++ string chain: each non-NULL value
+    (str as UTF-8, or bytes) hashed with its row's running seed."""
+    out = np.asarray(seeds, np.uint32).copy()
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        b = v.encode("utf-8") if isinstance(v, str) else bytes(v)
+        out[i] = hash_bytes_host(b, int(out[i]))
+    return out
+
+
+def _np_link(values: np.ndarray, dtype: DataType, h: np.ndarray
+             ) -> np.ndarray:
+    """One fixed-width column chained into the uint32 hashes `h`, with
+    Spark's rules (the numpy twin of `hash_column_device`)."""
+    tid = dtype.id
+    if tid in _INT_WORD:
+        return _np_hash_int(values.astype(np.int32).view(np.uint32), h)
+    if tid in _LONG_WORD:
+        return _np_hash_long(values.astype(np.int64), h)
+    if tid is TypeId.FLOAT32:
+        v = values.astype(np.float32)
+        bits = np.where(v == 0, np.float32(0), v).view(np.uint32)
+        bits = np.where(np.isnan(v), np.uint32(F32_NAN_BITS), bits)
+        return _np_hash_int(bits, h)
+    if tid is TypeId.FLOAT64:
+        v = values.astype(np.float64)
+        bits = np.where(v == 0, 0.0, v).view(np.int64)
+        bits = np.where(np.isnan(v), np.int64(F64_NAN_BITS), bits)
+        return _np_hash_long(bits, h)
+    check_hashable(dtype)
+    raise NotImplementedError(f"host hash of {dtype}")
+
+
+def hash_rows_host(columns, num_rows: int) -> np.ndarray:
+    """Spark's multi-column hash per row on the host, as int32.
+
+    `columns` is a list of (numpy values, numpy validity or None,
+    DataType, dictionary or None), the host mirror of a batch's key
+    columns: strings and binary are int32 codes into a pyarrow
+    dictionary and hash from the dictionary's real bytes (the C++
+    chain); every other type hashes as on the device, with Spark's float
+    rules (-0.0 as 0.0, one canonical NaN)."""
+    from blaze_tpu_torch.runtime import native
+
+    h = np.full(num_rows, SPARK_SEED, dtype=np.uint32)
+    for values, validity, dtype, dictionary in columns:
+        valid = None if validity is None \
+            else np.asarray(validity[:num_rows], dtype=bool)
+        if dtype.is_string_like:
+            if dictionary is None:
+                if valid is not None and not valid.any():
+                    continue  # an all-NULL column keeps every seed
+                raise ValueError("a string key column has no dictionary")
+            link = native.murmur3_dict_strings_chain(
+                dictionary, values[:num_rows], valid, h.copy())
+        else:
+            link = _np_link(np.asarray(values[:num_rows]), dtype, h)
+            if valid is not None:
+                link = np.where(valid, link, h)
+        h = link.astype(np.uint32)
+    return h.view(np.int32)
+
+
+def hash_arrays_host(arrays, dtypes) -> np.ndarray:
+    """Spark's hash (`hash(a, b, ...)`, seed 42) of pyarrow arrays, one
+    per argument, as int32: the host evaluator's arm for arguments that
+    include strings."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.batch import encode_strings, host_columns
+
+    n = len(arrays[0]) if arrays else 0
+    cols = []
+    for arr, dt in zip(arrays, dtypes):
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        valid = np.asarray(arr.is_valid()) if arr.null_count else None
+        if dt.is_string_like:
+            codes, d = encode_strings(arr, dt)
+            cols.append((codes, valid, dt, d))
+        else:
+            _, [(vals, _v, _d)] = host_columns(
+                pa.RecordBatch.from_arrays([arr], names=["x"]))
+            cols.append((vals, valid, dt, None))
+    return hash_rows_host(cols, n)

@@ -29,13 +29,19 @@ def batch_from_numpy(schema: Schema,
                      validity: Sequence[Optional[np.ndarray]],
                      selection: Optional[np.ndarray],
                      num_rows: int,
-                     device) -> ColumnBatch:
+                     device,
+                     dictionaries: Optional[Sequence] = None
+                     ) -> ColumnBatch:
     """Port ColumnBatch from padded host buffers: `values[i]` and
-    `validity[i]` (bool or None) have the batch capacity as length."""
+    `validity[i]` (bool or None) have the batch capacity as length; a
+    string column's values are its int32 codes into `dictionaries[i]`
+    (a pyarrow array)."""
     device = torch.device(device)
     cols: List[Column] = []
     caps = set()
-    for field, v, m in zip(schema, values, validity):
+    if dictionaries is None:
+        dictionaries = [None] * len(values)
+    for field, v, m, d in zip(schema, values, validity, dictionaries):
         check_fixed_width(field.dtype)
         v = np.ascontiguousarray(v, dtype=field.dtype.physical_dtype())
         caps.add(len(v))
@@ -45,7 +51,7 @@ def batch_from_numpy(schema: Schema,
         if m is not None:
             mt = torch.from_numpy(
                 np.ascontiguousarray(m, dtype=bool).copy()).to(device)
-        cols.append(Column(field.dtype, t, mt))
+        cols.append(Column(field.dtype, t, mt, d))
     if len(caps) > 1:
         raise ValueError(f"columns disagree on capacity: {sorted(caps)}")
     sel = None

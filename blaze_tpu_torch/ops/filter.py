@@ -4,7 +4,8 @@ Reference counterpart: DataFusion FilterExec (from_proto.rs:193-201;
 wrapper NativeFilterExec.scala). As in the JAX package (ops/filter.py),
 the predicate result is ANDed into the batch's selection mask and
 compaction is deferred to the next pipeline breaker, so shapes stay at
-their bucket and no host sync happens per batch.
+their bucket and no host sync happens per batch. A predicate node with a
+string input is evaluated on the host first (ops/host_lower.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from blaze_tpu_torch.exprs.optimize import bind_opt
 from blaze_tpu_torch.exprs.eval import DeviceEvaluator
 from blaze_tpu_torch.exprs.typing import expr_computes_wide_decimal
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
 from blaze_tpu_torch.ops.project import batch_cvs
 
 
@@ -28,8 +30,9 @@ class FilterExec(PhysicalOp):
         if expr_computes_wide_decimal(self.predicate, child.schema):
             raise NotImplementedError(
                 "predicates on decimal(>18) wait for ROADMAP "
-                "'Modules to port': expressions and types"
+                "'Modules to port' item 3 (decimal128)"
             )
+        self.host = needs_host(self.predicate, child.schema)
 
     @property
     def schema(self) -> Schema:
@@ -41,9 +44,12 @@ class FilterExec(PhysicalOp):
             yield self._filter(cb)
 
     def _filter(self, cb: ColumnBatch) -> ColumnBatch:
-        ev = DeviceEvaluator(cb.schema, batch_cvs(cb), cb.capacity,
+        pred, aug = self.predicate, cb
+        if self.host:
+            (pred,), _, aug = lower_strings_host([pred], cb)
+        ev = DeviceEvaluator(aug.schema, batch_cvs(aug), cb.capacity,
                              cb.device)
-        keep = ev.evaluate_predicate(self.predicate)
+        keep = ev.evaluate_predicate(pred)
         if cb.selection is not None:
             keep = keep & cb.selection
         return ColumnBatch(cb.schema, cb.columns, cb.num_rows, keep)

@@ -51,38 +51,22 @@ from blaze_tpu_torch.batch import (
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.eval import CV, DeviceEvaluator, _fmax, _fmin
 from blaze_tpu_torch.exprs.ir import AggFn
-from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.filter import FilterExec
-from blaze_tpu_torch.ops.project import batch_cvs
+from blaze_tpu_torch.ops.project import ProjectExec, batch_cvs
 from blaze_tpu_torch.ops.rename import RenameColumnsExec
 from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.pack import Layout, live_rows
 
 
-def _expr_needs_host(e: ir.Expr, schema: Schema) -> bool:
-    """True when a non-passthrough node has a string input (the JAX
-    package's host-lowering condition, ops/fused.py)."""
-    if isinstance(e, (ir.BoundCol, ir.Col, ir.Literal)):
-        return False
-    for c in ir.children(e):
-        if _expr_needs_host(c, schema):
-            return True
-        try:
-            if infer_dtype(c, schema).is_string_like:
-                return True
-        except Exception:
-            return True
-    return False
-
-
 def stage_needs_host(op: PhysicalOp) -> bool:
+    """True when a stage lowers a node to the host (ops/host_lower.py):
+    host pyarrow work cannot replay in a graph, so the fusion pass
+    leaves such a stage out of every chain (the JAX package's
+    `_expr_needs_host`)."""
     if isinstance(op, RenameColumnsExec):
         return False
-    schema = op.children[0].schema
-    if isinstance(op, FilterExec):
-        return _expr_needs_host(op.predicate, schema)
-    return any(_expr_needs_host(e, schema) for e, _ in op.exprs)
+    return op.host
 
 
 def _stage_key(st: PhysicalOp) -> Tuple:
@@ -146,6 +130,15 @@ class FusedPipelineExec(PhysicalOp):
             else leaf.schema
         # decided from the plan: the chain has no host stage
         self.capturable = not any(stage_needs_host(s) for s in self.stages)
+        # the leaf column each output passes through, if any: a string
+        # output keeps that column's host dictionary (a graph replays
+        # codes only; the dictionaries ride beside it)
+        src: List[Optional[int]] = list(range(len(leaf.schema)))
+        for st in self.stages:
+            if isinstance(st, ProjectExec):
+                src = [src[e.index] if isinstance(e, ir.BoundCol) else None
+                       for e, _ in st.exprs]
+        self._dict_src = src
 
     @property
     def schema(self) -> Schema:
@@ -186,12 +179,19 @@ class FusedPipelineExec(PhysicalOp):
             dispatch.record("graph_eager_batches")
             cols, sel = self.run(batch_cvs(cb), cb.capacity, cb.device,
                                  cb.selection)
-            yield self._batch(cols, sel, cb.num_rows)
+            yield self._batch(cols, sel, cb)
 
-    def _batch(self, cols: List[CV], sel, num_rows: int) -> ColumnBatch:
+    def out_dictionaries(self, cb: ColumnBatch) -> List[Optional[object]]:
+        """The host dictionaries of the chain's outputs for a leaf
+        batch (the JAX package's `_out_dictionaries`)."""
+        return [None if i is None else cb.columns[i].dictionary
+                for i in self._dict_src]
+
+    def _batch(self, cols: List[CV], sel, cb: ColumnBatch) -> ColumnBatch:
         return ColumnBatch(self._schema, [
-            Column(f.dtype, v, m) for f, (v, m) in zip(self._schema, cols)
-        ], num_rows, sel)
+            Column(f.dtype, v, m, d) for f, (v, m), d in
+            zip(self._schema, cols, self.out_dictionaries(cb))
+        ], cb.num_rows, sel)
 
     def _replay(self, cb: PackedColumnBatch) -> ColumnBatch:
         key = ("pipeline", self.structure_key(), cb.key, cb.device.index)
@@ -207,7 +207,7 @@ class FusedPipelineExec(PhysicalOp):
         cols = [(next(it), next(it) if has_m else None)
                 for has_m in g.has_validity]
         sel = next(it) if g.has_selection else None
-        return self._batch(cols, sel, cb.num_rows)
+        return self._batch(cols, sel, cb)
 
     def _capture(self, cb: PackedColumnBatch) -> dispatch.Graph:
         inp, cols_in = _static_input(cb)

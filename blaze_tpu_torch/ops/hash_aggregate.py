@@ -4,9 +4,15 @@ Reference counterpart: DataFusion AggregateExec built from proto
 (from_proto.rs:452-545) with Spark's two-phase mode mapping
 (NativeHashAggregateExec.scala:98-161). A port of the JAX package's
 ops/hash_aggregate.py for COUNT, COUNT(*), SUM, AVG, MIN, MAX, FIRST,
-LAST and the variance family over fixed-width input. Decimal SUM/AVG
-(chunked 128-bit states) and string keys raise NotImplementedError at
-construction, naming the ROADMAP item that brings them.
+LAST and the variance family over fixed-width input, and for string
+keys: key and argument nodes with a string input are evaluated on the
+host first (ops/host_lower.py), and a string key groups by its codes
+on one duplicate-free dictionary (a batch's own; `concat_batches`
+unifies the batches it joins, so FINAL merges PARTIAL states across
+batches and tasks). COUNT, FIRST and LAST take string arguments, as
+the JAX package allows; the key and FIRST/LAST outputs keep their
+dictionaries. MIN/MAX over strings raise, as in the JAX package; decimal
+SUM/AVG (chunked 128-bit states) raise naming item 3's rest.
 
 Keyless: one group, so every state is a masked reduction. Kernel K1
 (ops/kernels/stats.py) gives a column's sum, min, max and non-null count
@@ -51,6 +57,7 @@ from blaze_tpu_torch.exprs.eval import DeviceEvaluator
 from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.ops import hash_table as ht
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
 from blaze_tpu_torch.ops.external import (
     bucket_stream,
     collect_until,
@@ -58,8 +65,12 @@ from blaze_tpu_torch.ops.external import (
 )
 from blaze_tpu_torch.ops.kernels import segreduce
 from blaze_tpu_torch.ops.kernels.stats import masked_stats
-from blaze_tpu_torch.ops.project import batch_cvs
-from blaze_tpu_torch.ops.util import concat_batches, occupied_slots
+from blaze_tpu_torch.ops.project import batch_cvs, passthrough_dictionary
+from blaze_tpu_torch.ops.util import (
+    concat_batches,
+    occupied_slots,
+    unify_columns,
+)
 from blaze_tpu_torch.runtime.dispatch import host_int
 from blaze_tpu_torch.runtime.memory import (
     batch_device_bytes,
@@ -69,8 +80,7 @@ from blaze_tpu_torch.runtime.memory import (
 
 _ROADMAP_DECIMAL = ("ROADMAP 'Modules to port' item 3 (decimal SUM/AVG "
                     "states, with decimal128)")
-_ROADMAP_STRINGS = ("ROADMAP 'Modules to port' item 3 (dictionary-encoded "
-                    "strings)")
+_STRING_ARG_FNS = (AggFn.COUNT, AggFn.FIRST, AggFn.LAST)
 _VARIANCE = (AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
              AggFn.STDDEV_POP)
 # first and second tiers of the group-capacity ladder (the JAX package's
@@ -148,10 +158,13 @@ def _result_type(a: AggExpr, in_schema: Schema, mode: AggMode) -> DataType:
     return infer_dtype(a, in_schema)
 
 
-def _check_input_type(what: str, dt: DataType) -> None:
-    if dt.is_string_like:
-        raise NotImplementedError(f"{what} over {dt} waits for "
-                                  f"{_ROADMAP_STRINGS}")
+def _check_input_type(what: str, dt: DataType, fn=None) -> None:
+    if dt.is_string_like and fn is not None and fn not in _STRING_ARG_FNS:
+        # the JAX package refuses them too
+        # (blaze_tpu/ops/hash_aggregate.py:417-422)
+        raise NotImplementedError(
+            f"{what} over {dt}: MIN/MAX/SUM/AVG over strings are "
+            "host-tier work in the JAX package and the port alike")
     if dt.is_wide_decimal:
         raise NotImplementedError(f"{what} over {dt} waits for "
                                   f"{_ROADMAP_DECIMAL}")
@@ -297,12 +310,14 @@ class HashAggregateExec(PhysicalOp):
                 if a.child is None:
                     continue
                 ct = infer_dtype(a.child, in_schema)
-                _check_input_type(a.fn.value, ct)
+                _check_input_type(a.fn.value, ct, a.fn)
                 if ct.id is TypeId.DECIMAL and a.fn in (AggFn.SUM,
                                                         AggFn.AVG):
                     raise NotImplementedError(
                         f"{a.fn.value} over {ct} waits for "
                         f"{_ROADMAP_DECIMAL}")
+        self._host = mode is not AggMode.FINAL and any(
+            needs_host(e, in_schema) for e in self._lowered_inputs())
         if mode is AggMode.PARTIAL:
             fields: List[Field] = []
             for a, n in self.aggs:
@@ -468,37 +483,58 @@ class HashAggregateExec(PhysicalOp):
             yield out
 
     # ------------------------------------------------------------------
+    def _lowered_inputs(self) -> List[ir.Expr]:
+        """Key expressions, then each aggregate argument (not FINAL)."""
+        return [e for e, _ in self.keys] + [
+            a.child for a, _ in self.aggs if a.child is not None]
+
     def _aggregate_batch(self, cb: ColumnBatch) -> ColumnBatch:
         """The state (or result) rows of the batch's live rows: one row
         keyless, one per group keyed."""
         live = cb.live_mask()
+        key_exprs = [e for e, _ in self.keys]
+        aggs = [a for a, _ in self.aggs]
+        if self._host:
+            exprs, _, cb = lower_strings_host(self._lowered_inputs(), cb)
+            key_exprs, it = exprs[: len(key_exprs)], \
+                iter(exprs[len(key_exprs):])
+            aggs = [a if a.child is None else AggExpr(a.fn, next(it))
+                    for a in aggs]
+        cb = _unique_key_dictionaries(cb, key_exprs)
         cols = batch_cvs(cb)
         ev = DeviceEvaluator(cb.schema, cols, cb.capacity, cb.device)
         if self.keys:
-            outs, red, n = self._group(ev, live, cb.capacity)
+            outs, red, n = self._group(ev, key_exprs, live, cb.capacity)
         else:
             outs, red, n = [], _Scalar(), 1
+        dicts = [passthrough_dictionary(e, cb) for e in key_exprs]
         pos = len(self.keys)
-        for i, (a, _) in enumerate(self.aggs):
+        for i, a in enumerate(aggs):
             if self.mode is AggMode.FINAL:
                 width = self._final_widths[i]
                 outs.extend(_merge_states(
                     a, cols[pos: pos + width], live, red, cb.capacity))
+                dicts += [cb.columns[pos].dictionary] + [None] * (width - 1)
                 pos += width
             else:
-                outs.extend(_agg_state(a, ev, live, red, cb.capacity,
-                                       self.mode))
+                st = _agg_state(a, ev, live, red, cb.capacity, self.mode)
+                outs.extend(st)
+                d = None if a.child is None \
+                    or a.fn not in (AggFn.FIRST, AggFn.LAST) \
+                    else passthrough_dictionary(a.child, cb)
+                dicts += [d] + [None] * (len(st) - 1)
         out_cols = [
-            Column(f.dtype, v.to(torch_dtype(f.dtype)), m)
-            for (v, m), f in zip(outs, self._schema.fields)
+            Column(f.dtype, v.to(torch_dtype(f.dtype)), m, d)
+            for (v, m), f, d in zip(outs, self._schema.fields, dicts)
         ]
         return ColumnBatch(self._schema, out_cols, n)
 
-    def _group(self, ev: DeviceEvaluator, live: torch.Tensor,
-               capacity: int):
+    def _group(self, ev: DeviceEvaluator, key_exprs: List[ir.Expr],
+               live: torch.Tensor, capacity: int):
         """Group slots under the group-capacity ladder; returns the key
-        output columns, the keyed reductions and the group count."""
-        keys_cv = [ev.evaluate(e) for e, _ in self.keys]
+        output columns, the keyed reductions and the group count. A
+        string key groups by its codes."""
+        keys_cv = [ev.evaluate(e) for e in key_exprs]
         gcap = min(capacity, _TIER2_GROUPS)
         if gcap >= capacity:
             tiers: List[Optional[int]] = [None]
@@ -532,6 +568,23 @@ class HashAggregateExec(PhysicalOp):
         ]
         red = _SegOps(slot.to(torch.int32), tsize, occ)
         return outs, red, n
+
+
+def _unique_key_dictionaries(cb: ColumnBatch, key_exprs) -> ColumnBatch:
+    """The batch with each string key column's dictionary free of
+    repeated values (an Arrow input's need not be), so equal strings
+    have equal codes."""
+    cols = None
+    for e in key_exprs:
+        if isinstance(e, ir.BoundCol) and e.dtype.is_string_like:
+            c = cb.columns[e.index]
+            u = unify_columns([c])[0]
+            if u is not c:
+                cols = list(cb.columns) if cols is None else cols
+                cols[e.index] = u
+    if cols is None:
+        return cb
+    return ColumnBatch(cb.schema, cols, cb.num_rows, cb.selection)
 
 
 def _agg_state(a: AggExpr, ev: DeviceEvaluator, live: torch.Tensor,

@@ -29,8 +29,16 @@ Outer, semi and anti joins come from matched flags. Every gather and
 scatter index is clamped into range first: a CUDA gather past the end
 is a device-side assert, where JAX clamps quietly.
 
-Keys are fixed-width: string, dictionary and decimal(>18) keys raise
-NotImplementedError naming ROADMAP "Expressions and types".
+String keys join on codes. The build relation's key column is on one
+duplicate-free dictionary (`concat_batches` unifies it), and each probe
+batch's key codes are mapped into that dictionary's code space on the
+host side of the dictionary (`pc.index_in`, one gather of codes on the
+device); a probe string the build lacks maps to -1, which no build code
+equals. So the build index is built once per build relation, where the
+JAX package unifies both dictionaries per probe batch and rebuilds the
+index when build codes move (`_unify_key_pair`, `_ensure_index`): the
+same matches. Output columns keep their own codes and dictionaries.
+Decimal(>18) keys raise NotImplementedError naming item 3's rest.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import enum
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.batch import Column, ColumnBatch, row_mask, torch_dtype
@@ -47,12 +56,17 @@ from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.ops import hash_table as ht
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.kernels import murmur3
-from blaze_tpu_torch.ops.util import concat_batches, ensure_compacted
+from blaze_tpu_torch.ops.util import (
+    concat_batches,
+    ensure_compacted,
+    remap_codes,
+    unify_columns,
+)
 from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.dispatch import host_bool, host_int, host_ints
-from blaze_tpu_torch.types import Field, Schema
+from blaze_tpu_torch.types import DataType, Field, Schema
 
-ROADMAP_KEYS = "ROADMAP 'Modules to port': Expressions and types"
+ROADMAP_KEYS = "ROADMAP 'Modules to port' item 3 (decimal128)"
 
 _INT_KEYS = (torch.int8, torch.int16, torch.int32, torch.int64)
 
@@ -87,24 +101,53 @@ def _joined_schema(left: Schema, right: Schema, jt: JoinType) -> Schema:
     return Schema(fields)
 
 
-def check_key_types(schema: Schema, keys: Sequence[int]) -> None:
-    """Raise NotImplementedError for a key type the port cannot join."""
-    for i in keys:
-        dt = schema.fields[i].dtype
-        if dt.is_string_like or dt.is_dictionary_encoded:
+def check_key_types(left: Schema, left_keys: Sequence[int], right: Schema,
+                    right_keys: Sequence[int]) -> None:
+    """Raise NotImplementedError for a key type the port cannot join:
+    decimal(>18), or a string key against a non-string one."""
+    for i, j in zip(left_keys, right_keys):
+        lt, rt = left.fields[i].dtype, right.fields[j].dtype
+        for dt in (lt, rt):
+            if dt.is_wide_decimal:
+                raise NotImplementedError(
+                    f"join keys of {dt}: decimal128 keys wait for "
+                    f"{ROADMAP_KEYS}")
+        if lt.is_string_like != rt.is_string_like:
             raise NotImplementedError(
-                f"join keys of {dt}: string and dictionary keys wait for "
-                f"{ROADMAP_KEYS}")
-        if dt.is_wide_decimal:
-            raise NotImplementedError(
-                f"join keys of {dt}: decimal128 keys wait for "
-                f"{ROADMAP_KEYS}")
+                f"join keys of {lt} and {rt}: a string key joins a string "
+                "key")
 
 
 def _key_hash_cols(cols: List[Column]) -> List[Tuple]:
     """(values, validity, dtype) triples for murmur3. Equal keys hash
-    equal: the hash takes -0.0 as 0.0 and every NaN as one NaN."""
-    return [(c.values, c.validity, c.dtype) for c in cols]
+    equal: the hash takes -0.0 as 0.0 and every NaN as one NaN, and a
+    string key's codes (on the build's dictionary) hash as int32."""
+    return [(c.values, c.validity,
+             DataType.int32() if c.dtype.is_string_like else c.dtype)
+            for c in cols]
+
+
+def probe_codes(build: Column, probe: Column) -> Column:
+    """A probe string key's codes mapped into the build key's
+    dictionary (which holds each value once): equal strings get equal
+    codes, and a value the build lacks gets -1. A probe row's NULL
+    stays NULL."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from blaze_tpu_torch.batch import string_value_type
+
+    typ = string_value_type(build.dtype)
+    bd = build.dictionary if build.dictionary is not None \
+        else pa.array([], type=typ)
+    if probe.dictionary is None or len(probe.dictionary) == 0:
+        mapping = np.full(1, -1, dtype=np.int32)
+    else:
+        mapping = np.asarray(pc.index_in(
+            probe.dictionary.cast(typ), value_set=bd.cast(typ)).fill_null(-1),
+            dtype=np.int32)
+    return Column(build.dtype, remap_codes(probe.values, mapping),
+                  probe.validity, bd)
 
 
 def _kr_eligible(cols: List[Column]) -> bool:
@@ -140,7 +183,8 @@ def _count_into(n: int, idx: torch.Tensor, valid: torch.Tensor
 def _gather(cols: List[Column], idx: torch.Tensor) -> List[Column]:
     return [Column(c.dtype, torch.index_select(c.values, 0, idx),
                    None if c.validity is None
-                   else torch.index_select(c.validity, 0, idx))
+                   else torch.index_select(c.validity, 0, idx),
+                   c.dictionary)
             for c in cols]
 
 
@@ -157,6 +201,7 @@ class _JoinCore:
         self.matched_build = torch.zeros(build.capacity, dtype=torch.bool,
                                          device=build.device)
         self._index = None
+        self._build_keys: Optional[List[Column]] = None
         # a core may serve probe batches from several threads: index
         # builds and demotions run under this lock
         self._index_lock = threading.Lock()
@@ -164,6 +209,15 @@ class _JoinCore:
         self._table_demoted = False
         # a probe key the kr or direct table cannot take: generic table
         self._force_generic = False
+
+    def _build_key_cols(self) -> List[Column]:
+        """The build key columns; a string key on a dictionary holding
+        each value once (deduplicated once per core)."""
+        if self._build_keys is None:
+            self._build_keys = [
+                unify_columns([c])[0] if c.dtype.is_string_like else c
+                for c in (self.build.columns[i] for i in self.build_keys)]
+        return self._build_keys
 
     def _ensure_index(self, build_cols: List[Column]) -> None:
         if self._index is not None:
@@ -249,8 +303,10 @@ class _JoinCore:
         Returns the state for emit_pairs(), which also updates
         matched_build."""
         probe_cb = ensure_compacted(probe_cb)
-        build_cols = [self.build.columns[i] for i in self.build_keys]
+        build_cols = self._build_key_cols()
         probe_cols = [probe_cb.columns[i] for i in probe_keys]
+        probe_cols = [probe_codes(b, p) if p.dtype.is_string_like else p
+                      for b, p in zip(build_cols, probe_cols)]
         with self._index_lock:
             self._ensure_index(build_cols)
             self._check_probe_dtypes(build_cols, probe_cols)
@@ -392,8 +448,8 @@ class HashJoinExec(PhysicalOp):
         self.children = [left, right]
         self.left_keys = [left.schema.index_of(k) for k in left_keys]
         self.right_keys = [right.schema.index_of(k) for k in right_keys]
-        check_key_types(left.schema, self.left_keys)
-        check_key_types(right.schema, self.right_keys)
+        check_key_types(left.schema, self.left_keys, right.schema,
+                        self.right_keys)
         self.join_type = join_type
         self._schema = _joined_schema(left.schema, right.schema, join_type)
         self._build: Optional[ColumnBatch] = None
@@ -506,8 +562,8 @@ class SortMergeJoinExec(PhysicalOp):
         self.children = [left, right]
         self.left_keys = [left.schema.index_of(k) for k in left_keys]
         self.right_keys = [right.schema.index_of(k) for k in right_keys]
-        check_key_types(left.schema, self.left_keys)
-        check_key_types(right.schema, self.right_keys)
+        check_key_types(left.schema, self.left_keys, right.schema,
+                        self.right_keys)
         self.join_type = join_type
         self._schema = _joined_schema(left.schema, right.schema, join_type)
 

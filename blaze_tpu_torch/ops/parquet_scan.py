@@ -7,7 +7,9 @@ NativeParquetScanExec.scala:61-107 builds the groups/projection/filters).
 Parquet decode is host work (pyarrow's C++ reader) producing record
 batches of `batch_size` rows, each padded and packed on the host into a
 pinned staging buffer and copied to the device in one transfer
-(batch.PackedColumnBatch, runtime/pack.py).
+(batch.PackedColumnBatch, runtime/pack.py). A string column's int32
+codes travel inside that copy; its dictionary, encoded per batch (so
+each row group and file has its own), stays on the host beside it.
 Decode and copy run on a prefetch thread (runtime/prefetch.py) ahead of
 the device compute. Row-group pruning evaluates the pruning predicate
 against row-group statistics before any IO, and byte ranges in a

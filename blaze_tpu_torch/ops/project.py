@@ -3,7 +3,9 @@
 Reference counterpart: DataFusion ProjectionExec built from proto
 (from_proto.rs:173-192; wrapper NativeProjectExec.scala:61-77). The
 expressions run eagerly, op by op, on the batch's device; the pending
-selection rides through unchanged.
+selection rides through unchanged. Nodes with a string input are
+evaluated on the host first (ops/host_lower.py); a string output column
+keeps the dictionary of the column it passes through.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from blaze_tpu_torch.exprs.typing import (
     infer_dtype,
 )
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
 
 
 def batch_cvs(cb: ColumnBatch) -> List[CV]:
@@ -36,8 +39,9 @@ class ProjectExec(PhysicalOp):
             if expr_computes_wide_decimal(e, child.schema):
                 raise NotImplementedError(
                     "compute on decimal(>18) waits for ROADMAP "
-                    "'Modules to port': expressions and types"
+                    "'Modules to port' item 3 (decimal128)"
                 )
+        self.host = any(needs_host(e, child.schema) for e, _ in self.exprs)
         self._schema = Schema(
             [
                 Field(name, infer_dtype(e, child.schema), True)
@@ -55,11 +59,23 @@ class ProjectExec(PhysicalOp):
             yield self._project(cb)
 
     def _project(self, cb: ColumnBatch) -> ColumnBatch:
-        ev = DeviceEvaluator(cb.schema, batch_cvs(cb), cb.capacity,
+        exprs, aug = [e for e, _ in self.exprs], cb
+        if self.host:
+            exprs, _, aug = lower_strings_host(exprs, cb)
+        ev = DeviceEvaluator(aug.schema, batch_cvs(aug), cb.capacity,
                              cb.device)
         out_cols: List[Column] = []
-        for (e, _), field in zip(self.exprs, self._schema):
+        for e, field in zip(exprs, self._schema):
             v, m = ev.evaluate(e)
-            out_cols.append(Column(field.dtype, v, m))
+            out_cols.append(Column(field.dtype, v, m,
+                                   passthrough_dictionary(e, aug)))
         return ColumnBatch(self._schema, out_cols, cb.num_rows,
                            cb.selection)
+
+
+def passthrough_dictionary(e: ir.Expr, cb: ColumnBatch):
+    """The dictionary of a string column an expression passes through
+    (a column reference), else None."""
+    if isinstance(e, ir.BoundCol):
+        return cb.columns[e.index].dictionary
+    return None

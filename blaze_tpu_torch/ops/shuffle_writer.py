@@ -9,7 +9,10 @@ one data file and an index of LE i64 offsets, which Spark commits
 
 Per batch, on the device: the partition id of every row (kernel K4 for
 `hash`, an arange for `round_robin`; the padding rows get the sentinel
-`num_partitions`), one stable sort by id, the partitions' start offsets
+`num_partitions`; keys that include a string column hash on the host
+from their real bytes - one fetch of the key columns, the C++ chain of
+runtime/native.py, one copy of the ids back -, counted as
+`dispatch.host_hash_batches`), one stable sort by id, the partitions' start offsets
 by a binary search of the sorted ids, one gather of the columns. Then
 one copy of the offsets and one of the sorted batch to the host, where
 each partition's rows are a slice of one Arrow batch, encoded as one
@@ -33,8 +36,9 @@ from blaze_tpu_torch.exprs.optimize import bind_opt
 from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.io.ipc import encode_ipc_segment
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
 from blaze_tpu_torch.ops.kernels import murmur3
-from blaze_tpu_torch.ops.project import batch_cvs
+from blaze_tpu_torch.ops.project import batch_cvs, passthrough_dictionary
 from blaze_tpu_torch.ops.util import ensure_compacted, take_batch
 from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.memory import get_pool
@@ -137,12 +141,42 @@ def spark_partition_ids(cb: ColumnBatch, key_exprs: Sequence[ir.Expr],
     `num_partitions`. The batch must carry no pending selection."""
     if cb.selection is not None:
         raise ValueError("spark_partition_ids: compact the batch first")
-    ev = DeviceEvaluator(cb.schema, batch_cvs(cb), cb.capacity, cb.device)
+    exprs, aug = list(key_exprs), cb
+    if any(needs_host(e, cb.schema) for e in exprs):
+        exprs, _, aug = lower_strings_host(exprs, cb)
+    ev = DeviceEvaluator(aug.schema, batch_cvs(aug), cb.capacity, cb.device)
     cols = []
-    for e in key_exprs:
+    for e in exprs:
         v, m = ev.evaluate(e)
-        cols.append((v, m, infer_dtype(e, cb.schema)))
-    return murmur3.partition_ids(cols, cb.num_rows, num_partitions)
+        cols.append((v, m, infer_dtype(e, aug.schema),
+                     passthrough_dictionary(e, aug)))
+    if any(dt.is_string_like for _, _, dt, _ in cols):
+        return _host_partition_ids(cols, cb.num_rows, cb.capacity,
+                                   num_partitions, cb.device)
+    return murmur3.partition_ids([c[:3] for c in cols], cb.num_rows,
+                                 num_partitions)
+
+
+def _host_partition_ids(cols, num_rows: int, capacity: int,
+                        num_partitions: int, device) -> torch.Tensor:
+    """Partition ids of keys that include strings: the live prefix of
+    every key column in one fetch, Spark's hash on the host
+    (exprs/hashing.hash_rows_host), pmod, and the ids back to the
+    device with the padding's sentinel."""
+    from blaze_tpu_torch.batch import _h2d
+    from blaze_tpu_torch.exprs.hashing import hash_rows_host
+    from blaze_tpu_torch.runtime.pack import get_packed
+
+    dispatch.record("host_hash_batches")
+    wanted = [t[:num_rows] for v, m, _, _ in cols
+              for t in (v, m) if t is not None]
+    host = iter(get_packed(wanted))
+    rows = [(next(host), next(host) if m is not None else None, dt, d)
+            for _, m, dt, d in cols]
+    h = hash_rows_host(rows, num_rows)
+    pid = np.full(capacity, num_partitions, dtype=np.int32)
+    pid[:num_rows] = np.mod(h.astype(np.int64), num_partitions)
+    return _h2d(pid, torch.device(device))
 
 
 def round_robin_ids(cb: ColumnBatch, start: int, num_partitions: int

@@ -16,14 +16,22 @@ re-slice into bucket-sized batches. An input past
 - else (expression keys) a host sort in pyarrow over order lanes the
   device computes.
 
+A string key sorts by its dictionary ranks in UTF-8 byte order (Spark's
+UTF8String.compareTo; `ops/util.lexicographic_codes`), equal strings at
+equal ranks; ranks compare only on one dictionary, so the run merge
+takes each round's bound from the round's unified pool and the host
+sort orders the strings themselves. A key expression with a string input
+is evaluated on the host (ops/host_lower.py).
+
 Task metrics carry `dispatch.sort_route.<in_memory|topk|run_merge|host>`,
-`dispatch.sort_spilled_runs` and `dispatch.host_sorts`. String
-(dictionary) and decimal(>18) keys raise NotImplementedError.
+`dispatch.sort_spilled_runs` and `dispatch.host_sorts`. Decimal(>18)
+keys raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import tempfile
 from typing import Iterator, List, Optional, Tuple
@@ -38,19 +46,21 @@ from blaze_tpu_torch.exprs.optimize import bind_opt
 from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.external import collect_until
-from blaze_tpu_torch.ops.project import batch_cvs
+from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
+from blaze_tpu_torch.ops.project import batch_cvs, passthrough_dictionary
 from blaze_tpu_torch.ops.util import (
     _null_rank,
     compact,
     concat_batches,
     ensure_compacted,
+    lexicographic_codes,
     slice_to_batches,
     sort_indices,
     take_batch,
 )
 from blaze_tpu_torch.runtime import dispatch
 
-ROADMAP_TYPES = "ROADMAP 'Modules to port': expressions and types"
+ROADMAP_DECIMAL = "ROADMAP 'Modules to port' item 3 (decimal128)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +71,11 @@ class SortKey:
 
 
 def check_key_type(what: str, dt: DataType) -> None:
-    """Sort and window keys are fixed-width: dictionary codes need the
-    host's lexicographic remap and decimal(>18) two limb lanes."""
-    if dt.is_string_like or dt.is_wide_decimal:
+    """Sort and window keys are fixed-width or strings: decimal(>18)
+    needs two limb lanes."""
+    if dt.is_wide_decimal:
         raise NotImplementedError(f"{what} of type {dt} waits for "
-                                  f"{ROADMAP_TYPES}")
+                                  f"{ROADMAP_DECIMAL}")
 
 
 class SortExec(PhysicalOp):
@@ -179,20 +189,27 @@ class SortExec(PhysicalOp):
         heads: List[Optional[ColumnBatch]] = [next(i, None) for i in iters]
         leftover: Optional[ColumnBatch] = None
         while True:
-            live = [h for h in heads if h is not None]
+            live = [h for h in heads if h is not None and h.num_rows]
             if not live and leftover is None:
                 return
-            pool = concat_batches(
-                ([leftover] if leftover is not None else []) + live,
-                self.schema, ctx.device)
+            parts = ([leftover] if leftover is not None else []) + live
+            # one dictionary for the round: string ranks of the bound and
+            # of the pool compare
+            pool = concat_batches(parts, self.schema, ctx.device)
             leftover = None
-            pool = sort_batch(pool, self.keys)
             if not live:  # every run is drained: the pool is the rest
-                yield from slice_to_batches(pool, bs)
+                yield from slice_to_batches(sort_batch(pool, self.keys), bs)
                 return
-            bound = min(tuple(dispatch.host_ints(torch.stack(
-                [lane[h.num_rows - 1] for lane in order_lanes(h, self.keys)]),
-                "sort_merge")) for h in live)
+            # each live head's last row, by its position in the pool
+            ends = list(itertools.accumulate(p.num_rows for p in parts))
+            lasts = torch.tensor(ends[len(parts) - len(live):],
+                                 device=pool.device) - 1
+            k = len(live)
+            at = dispatch.host_ints(torch.cat(
+                [lane[lasts] for lane in order_lanes(pool, self.keys)]),
+                "sort_merge")
+            bound = min(tuple(at[j::k]) for j in range(k))
+            pool = sort_batch(pool, self.keys)
             n_safe = _count_at_most(pool, self.keys, bound)
             yield from slice_to_batches(
                 ColumnBatch(pool.schema, pool.columns, n_safe), bs)
@@ -221,13 +238,20 @@ class SortExec(PhysicalOp):
             if b.num_rows == 0:
                 continue
             rb = b.to_arrow()
-            lanes = [lane[: b.num_rows].cpu().numpy()
-                     for lane in order_lanes(b, self.keys)]
-            tables.append(_with_lanes(rb, names, lanes))
+            tables.append(_with_lanes(rb, names, _host_lanes(b, self.keys)))
         if not tables:
             return
-        tbl = pa.concat_tables(tables).sort_by(
-            [(n, "ascending") for n in names]).drop(names)
+        # a string key's value lane holds the strings themselves, which
+        # pyarrow orders by their bytes; the other lanes are in order
+        # already
+        orders = []
+        for i, k in enumerate(self.keys):
+            desc = not k.ascending and infer_dtype(
+                k.expr, self.schema).is_string_like
+            orders += [(names[2 * i], "ascending"),
+                       (names[2 * i + 1],
+                        "descending" if desc else "ascending")]
+        tbl = pa.concat_tables(tables).sort_by(orders).drop(names)
         if self.fetch is not None:
             tbl = tbl.slice(0, self.fetch)
         for rb in tbl.to_batches(max_chunksize=ctx.config.batch_size):
@@ -240,8 +264,29 @@ def _with_lanes(rb, names, lanes):
 
     t = pa.Table.from_batches([rb])
     for n, lane in zip(names, lanes):
-        t = t.append_column(n, pa.array(lane))
+        t = t.append_column(n, lane if isinstance(lane, pa.Array)
+                            else pa.array(lane))
     return t
+
+
+def _host_lanes(cb: ColumnBatch, keys: List[SortKey]) -> list:
+    """The host sort's lanes of one batch: `order_lanes`, but a string
+    key's value lane is its strings (NULL rows empty), which compare
+    across batches where dictionary ranks would not."""
+    from blaze_tpu_torch.batch import decode_strings
+
+    n = cb.num_rows
+    lanes = [lane[:n].cpu().numpy() for lane in order_lanes(cb, keys)]
+    for i, k in enumerate(keys):
+        col = _key_column(cb, k.expr)
+        if col.dtype.is_string_like:
+            codes = col.values[:n].cpu().numpy()
+            null = None if col.validity is None \
+                else ~col.validity[:n].cpu().numpy()
+            lanes[2 * i + 1] = decode_strings(
+                codes, null, col.dictionary, col.dtype).fill_null(
+                "" if col.dtype.id.value == "utf8" else b"")
+    return lanes
 
 
 def order_lanes(cb: ColumnBatch, keys: List[SortKey]) -> List[torch.Tensor]:
@@ -252,7 +297,7 @@ def order_lanes(cb: ColumnBatch, keys: List[SortKey]) -> List[torch.Tensor]:
     live = torch.ones(cb.capacity, dtype=torch.bool, device=cb.device)
     for k in keys:
         col = _key_column(cb, k.expr)
-        v = col.values
+        v = _sortable(col)
         if v.is_floating_point():
             f = v.to(torch.float64)
             f = torch.where(f == 0, torch.zeros_like(f), f)
@@ -287,10 +332,18 @@ def sort_batch(cb: ColumnBatch, keys: List[SortKey]) -> ColumnBatch:
     key_cols = []
     for k in keys:
         col = _key_column(cb, k.expr)
-        key_cols.append((col.values, col.validity, k.ascending,
+        key_cols.append((_sortable(col), col.validity, k.ascending,
                          k.nulls_first))
     idx = sort_indices(key_cols, cb.num_rows, cb.capacity, cb.device)
     return take_batch(cb, idx, cb.num_rows)
+
+
+def _sortable(col: Column) -> torch.Tensor:
+    """A key column's values in an order-preserving form: a string
+    column's dictionary ranks, any other column's values."""
+    if col.dtype.is_string_like:
+        return lexicographic_codes(col)
+    return col.values
 
 
 def _key_column(cb: ColumnBatch, e: ir.Expr) -> Column:
@@ -298,7 +351,11 @@ def _key_column(cb: ColumnBatch, e: ir.Expr) -> Column:
         return cb.columns[e.index]
     if isinstance(e, ir.Col):
         return cb.columns[cb.schema.index_of(e.name)]
-    # general expression keys: evaluate through the device evaluator
+    # general expression keys: string nodes on the host, the rest
+    # through the device evaluator
+    if needs_host(e, cb.schema):
+        (e,), _, cb = lower_strings_host([e], cb)
     ev = DeviceEvaluator(cb.schema, batch_cvs(cb), cb.capacity, cb.device)
     v, m = ev.evaluate(e)
-    return Column(infer_dtype(e, cb.schema), v, m)
+    return Column(infer_dtype(e, cb.schema), v, m,
+                  passthrough_dictionary(e, cb))

@@ -99,8 +99,18 @@ class StreamingSortMergeJoinExec(PhysicalOp):
         self.children = [left, right]
         self.left_keys = [left.schema.index_of(k) for k in left_keys]
         self.right_keys = [right.schema.index_of(k) for k in right_keys]
-        check_key_types(left.schema, self.left_keys)
-        check_key_types(right.schema, self.right_keys)
+        check_key_types(left.schema, self.left_keys, right.schema,
+                        self.right_keys)
+        for sch, keys in ((left.schema, self.left_keys),
+                          (right.schema, self.right_keys)):
+            for i in keys:
+                if sch.fields[i].dtype.is_string_like:
+                    # as the JAX package (blaze_tpu/ops/streaming_smj.py:
+                    # 106-109); the decoder falls back to the
+                    # materializing SortMergeJoinExec
+                    raise NotImplementedError(
+                        "string keys in the streaming sort-merge join: "
+                        "the materializing SortMergeJoinExec takes them")
         self.join_type = join_type
         self._schema = _joined_schema(left.schema, right.schema, join_type)
 

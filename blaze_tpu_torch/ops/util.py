@@ -1,15 +1,24 @@
-"""Shared batch utilities for operators: device gather/compact and batch
-concatenation."""
+"""Shared batch utilities for operators: device gather/compact, host-side
+dictionary unification and ranking, and batch concatenation."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.config import get_config
 from blaze_tpu_torch.types import Schema
-from blaze_tpu_torch.batch import Column, ColumnBatch, empty_batch
+from blaze_tpu_torch.batch import (
+    Column,
+    ColumnBatch,
+    _h2d,
+    empty_batch,
+    is_unique,
+    mark_unique,
+    string_value_type,
+)
 from blaze_tpu_torch.ops.kernels.compact import compact_perm
 from blaze_tpu_torch.runtime.dispatch import host_int
 
@@ -23,7 +32,7 @@ def take_batch(cb: ColumnBatch, indices: torch.Tensor, num_rows: int
         m = None
         if c.validity is not None:
             m = torch.index_select(c.validity, 0, indices)
-        cols.append(Column(c.dtype, v, m))
+        cols.append(Column(c.dtype, v, m, c.dictionary))
     return ColumnBatch(cb.schema, cols, num_rows)
 
 
@@ -60,14 +69,121 @@ def ensure_compacted(cb: ColumnBatch) -> ColumnBatch:
     return compact(cb)
 
 
+# ---------------------------------------------------------------------------
+# dictionaries (host) and code remaps (device)
+# ---------------------------------------------------------------------------
+
+def remap_codes(codes: torch.Tensor, mapping: np.ndarray) -> torch.Tensor:
+    """codes -> mapping[codes] on the codes' device. The mapping is
+    padded to a power of two and every code clamped into it, so a
+    padded row's stray code gathers in range; the padding keeps the
+    number of distinct table shapes logarithmic in dictionary sizes."""
+    pad = 1 << max(0, len(mapping) - 1).bit_length()
+    table = np.zeros(pad, dtype=np.int32)
+    table[: len(mapping)] = mapping
+    t = _h2d(table, codes.device)
+    idx = codes.to(torch.int64).clamp(0, max(len(mapping), 1) - 1)
+    return torch.index_select(t, 0, idx)
+
+
+def _dictionary_or_empty(c: Column):
+    import pyarrow as pa
+
+    typ = string_value_type(c.dtype)
+    return pa.array([], type=typ) if c.dictionary is None \
+        else c.dictionary.cast(typ)
+
+
+def unify_columns(cols: Sequence[Column]) -> List[Column]:
+    """String columns of one type rewritten onto ONE dictionary, so code
+    equality is string equality across them: the dictionaries are
+    merged on the host (first occurrence order, each value once) and
+    each column's codes remapped on the device. A single column whose
+    dictionary repeats a value is deduplicated the same way. Columns
+    that already share one duplicate-free dictionary pass unchanged."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    first = cols[0].dictionary
+    if first is not None and all(c.dictionary is first for c in cols) \
+            and is_unique(first):
+        return list(cols)
+    dicts = [_dictionary_or_empty(c) for c in cols]
+    enc = pc.dictionary_encode(pa.concat_arrays(dicts))
+    unified = mark_unique(enc.dictionary)
+    new_codes = enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
+    out = []
+    off = 0
+    for c, d in zip(cols, dicts):
+        mapping = new_codes[off: off + len(d)]
+        off += len(d)
+        values = c.values if len(mapping) == 0 \
+            else remap_codes(c.values, mapping)
+        out.append(Column(c.dtype, values, c.validity, unified))
+    return out
+
+
+def unify_dictionaries(batches: List[ColumnBatch]) -> List[ColumnBatch]:
+    """Rewrite batches of one schema so each string column shares one
+    dictionary across them (the JAX package's `unify_dictionaries`):
+    required before any cross-batch compute on codes - grouping,
+    joining, sorting, window partitions, the run merge. Selections are
+    kept."""
+    if not batches:
+        return batches
+    string_cols = [i for i, f in enumerate(batches[0].schema)
+                   if f.dtype.is_dictionary_encoded]
+    if not string_cols:
+        return batches
+    cols = [list(b.columns) for b in batches]
+    for ci in string_cols:
+        for bc, c in zip(cols, unify_columns([b.columns[ci]
+                                              for b in batches])):
+            bc[ci] = c
+    return [ColumnBatch(b.schema, c, b.num_rows, b.selection)
+            for b, c in zip(batches, cols)]
+
+
+def dictionary_ranks(dictionary) -> np.ndarray:
+    """int32 rank of each dictionary position in the strings' order:
+    UTF-8 byte order (binary: byte order), as Spark's
+    UTF8String.compareTo; equal values share a rank, so a dictionary
+    that repeats a value still orders by the next key."""
+    import pyarrow.compute as pc
+
+    n = len(dictionary)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32)
+    order = np.asarray(pc.sort_indices(dictionary))
+    sv = dictionary.take(order)
+    new = np.ones(n, dtype=np.int32)
+    if n > 1:
+        new[1:] = np.asarray(pc.not_equal(sv.slice(1), sv.slice(0, n - 1)),
+                             dtype=np.int32)
+    rank = np.empty(n, dtype=np.int32)
+    rank[order] = np.cumsum(new, dtype=np.int32) - 1
+    return rank
+
+
+def lexicographic_codes(col: Column) -> torch.Tensor:
+    """A string column's codes as ranks whose integer order is the
+    strings' order (the JAX package's `_lexicographic_codes`, with equal
+    strings at equal ranks)."""
+    if col.dictionary is None:
+        return col.values
+    return remap_codes(col.values, dictionary_ranks(col.dictionary))
+
+
 def concat_batches(batches: List[ColumnBatch], schema: Schema,
                    device: torch.device) -> ColumnBatch:
     """Concatenate live rows of many batches into one padded batch
-    (pipeline-breaker materialization)."""
+    (pipeline-breaker materialization). String columns come out on one
+    dictionary (`unify_dictionaries`)."""
     batches = [ensure_compacted(b) for b in batches]
     batches = [b for b in batches if b.num_rows > 0]
     if not batches:
         return empty_batch(schema, device)
+    batches = unify_dictionaries(batches)
     schema = batches[0].schema
     total = sum(b.num_rows for b in batches)
     cap = get_config().bucket_for(total)
@@ -90,7 +206,8 @@ def concat_batches(batches: List[ColumnBatch], schema: Schema,
             ])
             validity = torch.zeros(cap, dtype=torch.bool, device=v.device)
             validity[:total] = m
-        cols.append(Column(field.dtype, values, validity))
+        cols.append(Column(field.dtype, values, validity,
+                           parts[0].dictionary))
     return ColumnBatch(schema, cols, total)
 
 
@@ -105,7 +222,7 @@ def slice_to_batches(cb: ColumnBatch, batch_size: int) -> List[ColumnBatch]:
         cap = get_config().bucket_for(n)
         cols = [Column(c.dtype, _rows(c.values, start, n, cap),
                        None if c.validity is None
-                       else _rows(c.validity, start, n, cap))
+                       else _rows(c.validity, start, n, cap), c.dictionary)
                 for c in cb.columns]
         out.append(ColumnBatch(cb.schema, cols, n))
     return out

@@ -36,6 +36,15 @@ them. Where the JAX program differs:
   steps: one host sync a call (`d2h_syncs.window_span`), only when a
   function needs them.
 
+String partition and order keys (column references) sort by their
+dictionary ranks in UTF-8 byte order (ops/util.lexicographic_codes) on
+the partition's one unified dictionary; partitions and peers compare
+codes, which that dictionary makes string equality. lag and lead over a
+string column keep its dictionary; COUNT takes one. A partition or
+order key with a string node (`If(c, s, NULL)`) is evaluated on the host
+per execution (ops/host_lower.py); a function argument with one raises:
+a Project below the window computes it.
+
 The sort permutation is cached across executions on the identity and
 `_version` of the input tensors (an in-place write bumps the version).
 A Project/Rename chain under the window folds into it
@@ -58,12 +67,14 @@ from blaze_tpu_torch.exprs.optimize import bind_opt
 from blaze_tpu_torch.exprs.typing import infer_dtype
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.kernels.compact import compact_perm
+from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
 from blaze_tpu_torch.ops.project import batch_cvs
 from blaze_tpu_torch.ops.sort import SortKey, check_key_type
 from blaze_tpu_torch.ops.util import (
     PACKED_MAX_ROWS,
     _order_key_u32,
     concat_batches,
+    lexicographic_codes,
     sort_indices,
 )
 from blaze_tpu_torch.runtime import dispatch
@@ -169,6 +180,22 @@ class WindowExec(PhysicalOp):
                 raise NotImplementedError(
                     "window over decimal(>18) is host-tier work")
             check_key_type("window column", dt)
+        for f in self.functions:
+            if f.source is not None and needs_host(f.source, schema):
+                raise NotImplementedError(
+                    "a window function argument with a string node: "
+                    "project it below the window")
+            if f.source is not None and f.kind not in (
+                    "lag", "lead", "count") and infer_dtype(
+                    f.source, schema).is_string_like:
+                raise NotImplementedError(
+                    f"window {f.kind} over strings is host-tier work in "
+                    "the JAX package and the port alike")
+        # partition and order keys with a string node (If(c, s, NULL))
+        # are lowered on the host per execution (ops/host_lower.py)
+        self._host_keys = any(
+            needs_host(e, schema)
+            for e in self.partition_by + [k.expr for k in self.order_by])
         out_fields = list(schema.fields)
         for f in self.functions:
             out_fields.append(
@@ -218,9 +245,27 @@ class WindowExec(PhysicalOp):
             return
         dispatch.record("window_route.window")
         cols, outs = self.run(cb)
-        out = [Column(f.dtype, v, m)
-               for f, (v, m) in zip(self._schema, cols + outs)]
+        out = [Column(f.dtype, v, m, d)
+               for f, (v, m), d in zip(self._schema, cols + outs,
+                                       self.out_dictionaries(cb))]
         yield ColumnBatch(self._schema, out, cb.num_rows)
+
+    def in_dictionaries(self, cb: ColumnBatch) -> List[Optional[object]]:
+        """The host dictionaries of the window's input columns for a
+        batch of the child (through the folded chain, if any)."""
+        if self._fused_pipeline is not None:
+            return self._fused_pipeline.out_dictionaries(cb)
+        return [c.dictionary for c in cb.columns]
+
+    def out_dictionaries(self, cb: ColumnBatch) -> List[Optional[object]]:
+        """Dictionaries of every output column: the input's, then lag
+        and lead of a string column keep its dictionary."""
+        ins = self.in_dictionaries(cb)
+        fns = [ins[f.source.index]
+               if f.kind in ("lag", "lead")
+               and isinstance(f.source, ir.BoundCol) else None
+               for f in self.functions]
+        return ins + fns
 
     # ------------------------------------------------------------------
     def _cache_key(self, bufs, num_rows: int) -> tuple:
@@ -258,17 +303,30 @@ class WindowExec(PhysicalOp):
         (None, None)."""
         cap, dev, n = cb.capacity, cb.device, cb.num_rows
         schema = self._in_schema
+        n_in = len(schema)
         bufs = [t for c in cb.columns
                 for t in (c.values, c.validity) if t is not None]
         cols = batch_cvs(cb)
         if self._fused_pipeline is not None:
             cols, _ = self._fused_pipeline.run(cols, cap, dev, None)
+        dicts = self.in_dictionaries(cb)
+        part, order = self.partition_by, self.order_by
+        if self._host_keys:
+            base = ColumnBatch(schema, [Column(f.dtype, v, m, d) for f, (
+                v, m), d in zip(schema, cols, dicts)], n)
+            exprs, _, aug = lower_strings_host(
+                part + [k.expr for k in order], base)
+            part = exprs[: len(part)]
+            order = [SortKey(e, k.ascending, k.nulls_first)
+                     for e, k in zip(exprs[len(part):], order)]
+            schema, cols = aug.schema, batch_cvs(aug)
+            dicts = [c.dictionary for c in aug.columns]
         if want_fns is None:
             want_fns = [True] * len(self.functions)
         if want_cols is None:
-            want_cols = set(range(len(schema)))
+            want_cols = set(range(n_in))
         want = set(want_cols)
-        for e in self.partition_by + [k.expr for k in self.order_by]:
+        for e in part + [k.expr for k in order]:
             want |= expr_refs(e, schema)
         for f, w in zip(self.functions, want_fns):
             if w and f.source is not None:
@@ -277,8 +335,12 @@ class WindowExec(PhysicalOp):
         if idx is None:
             ev = DeviceEvaluator(schema, cols, cap, dev)
             lanes = []
-            for k in self.sort_keys():
+            for k in [SortKey(e, True, True) for e in part] + order:
                 v, m = ev.evaluate(k.expr)
+                if isinstance(k.expr, ir.BoundCol) \
+                        and k.expr.dtype.is_string_like:
+                    v = lexicographic_codes(
+                        Column(k.expr.dtype, v, m, dicts[k.expr.index]))
                 lanes.append((v, m, k.ascending, k.nulls_first))
             idx = sort_indices(lanes, n, cap, dev)
             self._store_sort_idx(bufs, n, idx)
@@ -287,13 +349,13 @@ class WindowExec(PhysicalOp):
             else (None, None)
             for i, (v, m) in enumerate(cols)]
         ev = DeviceEvaluator(schema, sorted_cols, cap, dev)
-        frames = _Frames(ev, self.partition_by, self.order_by, n, cap, dev)
+        frames = _Frames(ev, part, order, n, cap, dev)
         outs = [frames.compute(f) if w else (None, None)
                 for f, w in zip(self.functions, want_fns)]
         outs = [(v if v is None else v.to(torch_dtype(
                     self._fn_dtype(f, schema))), m)
                 for f, (v, m) in zip(self.functions, outs)]
-        return sorted_cols, outs
+        return sorted_cols[:n_in], outs
 
 
 # ---------------------------------------------------------------------------

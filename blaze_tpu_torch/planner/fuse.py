@@ -11,6 +11,10 @@ down and rewrites:
   chain (one state row for the stream, from the keyless carry);
 - a keyless COMPLETE aggregate into that carry plus a
   `HostFinalAggExec`, as the JAX package's COMPLETE rewrite does;
+- a stage or an aggregate that lowers a string node to the host
+  (ops/host_lower.py) is never folded: host pyarrow work cannot replay
+  in a graph, so it runs op by op (the JAX package refuses such folds
+  the same way);
 - a keyed aggregate keeps its `HashAggregateExec` over a
   `FusedPipelineExec` of its chain: grouping syncs with the host
   (`d2h_syncs.group_branch`, `.insert_round`, `.n_groups`), so a keyed
@@ -89,7 +93,7 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
             op.mode in (AggMode.PARTIAL, AggMode.COMPLETE):
         chain, leaf = _collect_chain(op.children[0])
         if op.mode is AggMode.COMPLETE and not op.keys and not chain \
-                and isinstance(leaf, WindowExec):
+                and not op._host and isinstance(leaf, WindowExec):
             # a keyless rollup directly over a window: the whole task -
             # the window's folded chain, argsort, frames and the
             # aggregate - in one pass. (The JAX package first checks
@@ -99,7 +103,8 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
             partial = HashAggregateExec(win, keys=[], aggs=list(op.aggs),
                                         mode=AggMode.PARTIAL)
             return HostFinalAggExec(FusedWindowAggExec(win, partial), op)
-        if not op.keys and keyless_merge_plan(op.aggs) is not None:
+        if not op.keys and not op._host \
+                and keyless_merge_plan(op.aggs) is not None:
             pipeline = FusedPipelineExec(fuse_pipelines(leaf),
                                          list(reversed(chain)))
             partial = HashAggregateExec(pipeline, keys=[],

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (`blaze_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py            # the full run: 16,777,216 parquet rows
+    python3 chip_smoke.py            # the full run: 8,388,608 parquet rows
                                      # (q6, select, expr_chain,
                                      # exchange_agg, grace, join_agg,
-                                     # join_kr, window, sort_topk),
-                                     # 4,194,304 (grouped, repartition,
-                                     # join_sorted, sort_full)
-    python3 chip_smoke.py --rows N --grouped-rows M   # smaller path phases
+                                     # join_kr, window, sort_topk; 2^24
+                                     # before the strings phases, cut
+                                     # so they fit), 4,194,304 (grouped,
+                                     # repartition, join_sorted,
+                                     # sort_full), 16,777,216 fact rows
+                                     # (tpcds_brand, tpcds_customer)
+    python3 chip_smoke.py --rows N --grouped-rows M --string-rows S
+                                     # other depths
     python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6 and
                                           # select tasks of another
                                           # checkout against this one,
@@ -147,6 +151,33 @@ Phases, one JSON line each:
      ranking, lag/lead, counts, integer sums and MIN/MAX exact; float
      SUM/AVG within 1e-9 of the frame's absolute sum.
    Each prints its route counters and syncs and runs once more under
+   torch.profiler.
+   Then dictionary-encoded strings in TPC-DS shapes (`strings_phase`):
+   - tpcds_brand (q42/q52/q55): a `--string-rows` store_sales file
+     (16,777,216 rows by default) JOIN an
+     item table of 131,072 rows (i_item_sk over the fact's item range;
+     i_brand of about 1000 values, TPC-DS's 10 i_category, 100 i_class;
+     parquet of 4 row groups), WHERE i_category = 'Books' (lowered to
+     the host over the dictionary), GROUP BY i_brand_id, i_brand
+     SUM(price * qty), ORDER BY the sum DESC, i_brand, LIMIT 100,
+     through execute_task, against pyarrow's Table.join, group_by and
+     sort_by (keys and order exact, sums within 1e-9 relative);
+   - tpcds_customer (q4/q11's year total): the same fact rows JOIN a
+     customer table of 1,048,576 rows (16-character c_customer_id, all
+     distinct, 4 row groups with their own dictionaries) on item * 8 +
+     qty % 8, GROUP BY c_customer_id, ORDER BY it, LIMIT 100, against
+     numpy; then the aggregate as Spark plans it over a hash exchange on
+     c_customer_id: 4,194,304 rows in 4 map tasks (PARTIAL, the
+     ShuffleWriter hashing the strings on the host) and 200 reduce
+     tasks (FINAL), every group against numpy, each group's reducer and
+     the partition ids of 65,536 customer ids bit for bit against a
+     plain-Python Spark murmur3;
+   - tpcds99: the 99 queries of tests/test_torch_tpcds.py on the card,
+     BHJ flavour, at 200,000 store_sales rows, against the pandas
+     oracles of tests/test_tpcds_queries.py (both files loaded by the
+     source rewrite of tests/torch_tpcds_support.py).
+   Each prints its wall, rows/s, device calls, syncs, d2h_fetches and
+   the string tier's counters (`strings` lines) and runs once more under
    torch.profiler. The shape of every kernel launch on these paths is
    noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
@@ -1377,7 +1408,6 @@ def profile_run(torch, fn, task: str, wall: float):
     """Run fn() once more under torch.profiler: device busy time (every
     kernel and copy CUPTI saw, ours included) against the unprofiled
     wall gives the device's idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1386,6 +1416,33 @@ def profile_run(torch, fn, task: str, wall: float):
         fn()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+    return profile_line(prof, task, wall, prof_wall)
+
+
+def counted_profiled(torch, fn, task: str, kernels):
+    """run_counted over ONE run under torch.profiler, for a long task
+    that runs once: its wall is the profiled wall (the line says so)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    held = {}
+
+    def under():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        held["prof"] = prof
+        return out
+
+    out, wall, launches, transfers = run_counted(torch, under, kernels)
+    line = profile_line(held["prof"], task, wall, wall)
+    return out, wall, launches, transfers, line
+
+
+def profile_line(prof, task: str, wall: float, prof_wall: float):
+    """The profile line of a finished torch.profiler run."""
+    from torch.autograd import DeviceType
+
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
@@ -1394,18 +1451,20 @@ def profile_run(torch, fn, task: str, wall: float):
         k in e.key for k in ("masked_stats_kernel", "compact_small",
                              "compact_lookback", "seg_shared", "seg_global",
                              "seg_decode", "partition_ids"))]
-    emit({"phase": "profile", "task": task,
-          "device_busy_ms": busy_ms if dev else "not measured",
-          "device_calls": sum(e.count for e in dev),
-          "wall_s": wall, "profiled_wall_s": prof_wall,
-          "idle_share": 1 - busy_ms / (wall * 1e3) if dev
-          else "not measured",
-          "port_kernels": [{"name": e.key[:60], "calls": e.count,
+    line = {"phase": "profile", "task": task,
+            "device_busy_ms": busy_ms if dev else "not measured",
+            "device_calls": sum(e.count for e in dev),
+            "wall_s": wall, "profiled_wall_s": prof_wall,
+            "idle_share": 1 - busy_ms / (wall * 1e3) if dev
+            else "not measured",
+            "port_kernels": [{"name": e.key[:60], "calls": e.count,
+                              "ms": e.self_device_time_total / 1e3}
+                             for e in ours],
+            "top_device": [{"name": e.key[:80], "calls": e.count,
                             "ms": e.self_device_time_total / 1e3}
-                           for e in ours],
-          "top_device": [{"name": e.key[:80], "calls": e.count,
-                          "ms": e.self_device_time_total / 1e3}
-                         for e in top]})
+                           for e in top]}
+    emit(line)
+    return line
 
 
 def path_phase(torch, rows: int, seed: int, kernels):
@@ -1798,15 +1857,16 @@ def reduce_tasks(plan, outputs, partitions: int):
     return blobs
 
 
-def run_stage(torch, blobs):
-    """Run TaskDefinitions one after another on cuda; returns each
-    task's Arrow batches and the sum of their metric counters."""
+def run_stage(torch, blobs, device="cuda"):
+    """Run TaskDefinitions one after another on the card (or the CPU,
+    to rehearse); returns each task's Arrow batches and the sum of their
+    metric counters."""
     from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.runtime.executor import execute_task
 
     outs, counters = [], {}
     for blob in blobs:
-        ctx = ExecContext(device="cuda")
+        ctx = ExecContext(device=device)
         outs.append(list(execute_task(blob, ctx)))
         for k, v in ctx.metrics.counters.items():
             counters[k] = counters.get(k, 0) + v
@@ -2753,6 +2813,469 @@ def window_phase(torch, rows: int, seed: int, kernels):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: dictionary-encoded strings in TPC-DS shapes
+# ---------------------------------------------------------------------------
+
+#: TPC-DS's ten item categories (the dsdgen `categories` distribution)
+CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry", "Men",
+              "Music", "Shoes", "Sports", "Women"]
+BRAND_IDS = 1000  # about 1000 distinct i_brand
+CLASSES = 100  # about 100 distinct i_class
+CUSTOMERS = 1 << 20
+ROW_GROUPS = 4
+CUSTOMER_EXCHANGE_ROWS = 1 << 22
+PID_SAMPLE = 1 << 16
+TPCDS99_ROWS = 200_000
+#: queries whose only possible difference on the card is a rank column
+#: over float sums (the column's name): ties split by summation order
+TPCDS99_RANK_TIES = {"q67": "rk"}
+_SYLLABLES = ["amalg", "brand", "corp", "edu pack", "exporti", "importo",
+              "maxi", "namel", "scholar", "univ"]
+
+
+def item_strings_table(seed: int):
+    """The item dimension with TPC-DS's string columns: i_item_sk =
+    0 .. ITEMS - 1 (the fact's item range), i_brand_id in [1, 1000] with
+    its i_brand name (the brand decides the category, as TPC-DS's names
+    carry it), i_category (TPC-DS's 10) and i_class (100)."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed + 101)
+    bid = rng.integers(1, BRAND_IDS + 1, ITEMS).astype(np.int32)
+    names = np.array([f"{_SYLLABLES[b % 10]}{_SYLLABLES[b // 10 % 10]} #{b}"
+                      for b in range(BRAND_IDS + 1)], dtype=object)
+    cats = np.array(CATEGORIES, dtype=object)
+    classes = np.array([f"class {c:02d}" for c in range(CLASSES)],
+                       dtype=object)
+    return pa.table({
+        "i_item_sk": np.arange(ITEMS, dtype=np.int32),
+        "i_brand_id": bid,
+        "i_brand": pa.array(names[bid].tolist()),
+        "i_category": pa.array(cats[(bid * 7) % 10].tolist()),
+        "i_class": pa.array(classes[rng.integers(0, CLASSES, ITEMS)]
+                            .tolist()),
+    })
+
+
+def customer_ids(n: int) -> np.ndarray:
+    """TPC-DS's 16-character c_customer_id ("AAAAAAAA" then the key in
+    base 26), all distinct, as an (n, 16) uint8 array."""
+    out = np.full((n, 16), ord("A"), dtype=np.uint8)
+    k = np.arange(n, dtype=np.int64)
+    for j in range(15, 7, -1):
+        out[:, j] = ord("A") + k % 26
+        k //= 26
+    return out
+
+
+def customer_table(seed: int):
+    """customer: c_customer_sk 0 .. 2^20 - 1 in a random row order (so
+    each of the 4 row groups holds its own dictionary, in no sorted
+    order) and its c_customer_id."""
+    import pyarrow as pa
+
+    perm = np.random.default_rng(seed + 202).permutation(CUSTOMERS)
+    ids = customer_ids(CUSTOMERS)[perm]
+    offsets = (np.arange(CUSTOMERS + 1, dtype=np.int32) * 16)
+    cid = pa.StringArray.from_buffers(CUSTOMERS, pa.py_buffer(offsets),
+                                      pa.py_buffer(ids.tobytes()))
+    return pa.table({"c_customer_sk": perm.astype(np.int32),
+                     "c_customer_id": cid}), ids, perm
+
+
+def customer_key(item, qty):
+    """The fact's customer key, item * 8 + qty % 8, in [0, 2^20)."""
+    return item.astype(np.int64) * 8 + qty % 8
+
+
+def _spark_bytes(b: bytes, seed: int = 42) -> int:
+    """Spark's Murmur3_x86_32.hashUnsafeBytes in plain Python: whole
+    little-endian words, then each byte sign-extended through the whole
+    mix (an oracle apart from the port's C++ chain)."""
+    m = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & m
+
+    def mix(h, k):
+        k = rotl((k * 0xCC9E2D51) & m, 15) * 0x1B873593 & m
+        return (rotl(h ^ k, 13) * 5 + 0xE6546B64) & m
+
+    h = seed
+    aligned = len(b) - len(b) % 4
+    for i in range(0, aligned, 4):
+        h = mix(h, int.from_bytes(b[i:i + 4], "little"))
+    for x in b[aligned:]:
+        h = mix(h, (x - 256 if x >= 128 else x) & m)
+    h ^= len(b)
+    h ^= h >> 16
+    h = h * 0x85EBCA6B & m
+    h ^= h >> 13
+    h = h * 0xC2B2AE35 & m
+    h ^= h >> 16
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def strings_line(task: str, rows: int, wall: float, launches, transfers,
+                 prof, **extra):
+    """The phase's own line: wall, rows/s, device calls, syncs and
+    d2h_fetches, with the string tier's counters."""
+    emit({"phase": "strings", "task": task, "rows": rows, "wall_s": wall,
+          "rows_per_s": rows / wall,
+          "device_calls": prof["device_calls"],
+          "idle_share": prof["idle_share"],
+          "syncs": transfers.get("d2h_syncs", 0),
+          "d2h_fetches": transfers.get("d2h_fetches", 0),
+          "h2d_copies": transfers.get("h2d_copies", 0),
+          "host_lower_dictionary": transfers.get("host_lower_dictionary", 0),
+          "host_lower_rows": transfers.get("host_lower_rows", 0),
+          "host_hash_batches": transfers.get("host_hash_batches", 0),
+          "launches": launches, "transfers": transfers, **extra})
+
+
+def tpcds_brand_plan(fact, item):
+    """TPC-DS q42/q52/q55's shape: store_sales JOIN item WHERE i_category
+    = 'Books', GROUP BY i_brand_id, i_brand SUM(price * qty), ORDER BY
+    the sum DESC, i_brand, LIMIT 100."""
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col, Literal
+    from blaze_tpu_torch.ops import (AggMode, FilterExec, HashAggregateExec,
+                                     HashJoinExec, JoinType, LimitExec,
+                                     ProjectExec, SortExec, SortKey)
+    from blaze_tpu_torch.types import DataType
+
+    f64 = DataType.float64()
+    books = FilterExec(item, Col("i_category") == Literal("Books",
+                                                          DataType.utf8()))
+    j = HashJoinExec(books, fact, ["i_item_sk"], ["item"], JoinType.INNER)
+    p = ProjectExec(j, [(Col("i_brand_id"), "i_brand_id"),
+                        (Col("i_brand"), "i_brand"),
+                        (Col("price").cast(f64) * Col("qty").cast(f64),
+                         "ext")])
+    agg = HashAggregateExec(
+        p, keys=[(Col("i_brand_id"), "i_brand_id"),
+                 (Col("i_brand"), "i_brand")],
+        aggs=[(AggExpr(AggFn.SUM, Col("ext")), "ext_price")],
+        mode=AggMode.COMPLETE)
+    return LimitExec(SortExec(agg, [SortKey(Col("ext_price"), False, False),
+                                    SortKey(Col("i_brand"))]), 100)
+
+
+def check_brand(table, item, qty, price, items):
+    """Against pyarrow: Table.join, group_by, sort_by. Keys and order
+    equal, sums within 1e-9 relative."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    fact = pa.table({"item": item, "ext": price.astype(np.float64)
+                     * qty.astype(np.float64)})
+    books = items.filter(pc.equal(items.column("i_category"), "Books"))
+    j = fact.join(books, keys="item", right_keys="i_item_sk",
+                  join_type="inner")
+    g = j.group_by(["i_brand_id", "i_brand"]).aggregate([("ext", "sum")])
+    exp = g.sort_by([("ext_sum", "descending"),
+                     ("i_brand", "ascending")]).slice(0, 100)
+    for col in ("i_brand_id", "i_brand"):
+        if table.column(col).to_pylist() != exp.column(col).to_pylist():
+            raise AssertionError(f"tpcds_brand: {col} differs from pyarrow")
+    got_s = table.column("ext_price").to_numpy()
+    exp_s = exp.column("ext_sum").to_numpy()
+    rel = np.abs(got_s - exp_s) / np.maximum(np.abs(exp_s), 1e-300)
+    if not (rel <= 1e-9).all():
+        raise AssertionError(f"tpcds_brand: sums off by {rel.max()}")
+    return float(rel.max()), len(exp)
+
+
+def tpcds_customer_plan(fact, customer, partial=False):
+    """q4/q11's year-total shape: per c_customer_id SUM(price * qty) over
+    store_sales JOIN customer; ORDER BY c_customer_id LIMIT 100 (or the
+    PARTIAL aggregate of a map task)."""
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col, Literal
+    from blaze_tpu_torch.ops import (AggMode, HashAggregateExec,
+                                     HashJoinExec, JoinType, LimitExec,
+                                     ProjectExec, SortExec, SortKey)
+    from blaze_tpu_torch.types import DataType
+
+    f64, i32 = DataType.float64(), DataType.int32()
+    probe = ProjectExec(fact, [
+        (Col("item") * Literal(8, i32) + Col("qty") % Literal(8, i32),
+         "ss_customer_sk"),
+        (Col("price").cast(f64) * Col("qty").cast(f64), "ext")])
+    j = HashJoinExec(customer, probe, ["c_customer_sk"], ["ss_customer_sk"],
+                     JoinType.INNER)
+    p = ProjectExec(j, [(Col("c_customer_id"), "c_customer_id"),
+                        (Col("ext"), "ext")])
+    agg = HashAggregateExec(
+        p, keys=[(Col("c_customer_id"), "c_customer_id")],
+        aggs=[(AggExpr(AggFn.SUM, Col("ext")), "year_total")],
+        mode=AggMode.PARTIAL if partial else AggMode.COMPLETE)
+    if partial:
+        return agg
+    return LimitExec(SortExec(agg, [SortKey(Col("c_customer_id"))]), 100)
+
+
+def customer_oracle(item, qty, price):
+    """Per customer key: (row count, float64 sum of price * qty)."""
+    key = customer_key(item, qty)
+    ext = price.astype(np.float64) * qty.astype(np.float64)
+    return (np.bincount(key, minlength=CUSTOMERS),
+            np.bincount(key, ext, minlength=CUSTOMERS))
+
+
+def check_customer_rows(ids_got, sums_got, cnt, tot, ids_by_key, task):
+    """Each (c_customer_id, sum) against the oracle's key; returns the
+    largest relative error."""
+    lookup = {bytes(r): k for k, r in enumerate(ids_by_key)}
+    keys = np.array([lookup[s.encode()] for s in ids_got], dtype=np.int64)
+    if (cnt[keys] == 0).any():
+        raise AssertionError(f"{task}: a group of no row")
+    exp = tot[keys]
+    rel = np.abs(np.asarray(sums_got) - exp) / np.maximum(np.abs(exp),
+                                                          1e-300)
+    if not (rel <= 1e-9).all():
+        raise AssertionError(f"{task}: sums off by {rel.max()}")
+    return float(rel.max()) if len(rel) else 0.0
+
+
+def tpcds99_check(rows: int, device: str):
+    """The CPU twin's query set (tests/test_torch_tpcds.py) on the card,
+    BHJ flavour: all 99 queries of tests/tpcds_support.py against the
+    pandas oracles of tests/test_tpcds_queries.py, loaded by the same
+    source rewrite (no JAX)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_tpcds_support
+
+    from blaze_tpu_torch.config import EngineConfig, get_config, set_config
+    from blaze_tpu_torch.runtime.executor import run_plan
+
+    support, queries = torch_tpcds_support.load(rows)
+    old = get_config()
+    left_out = {}
+    set_config(EngineConfig(
+        device=device, batch_size=max(rows, 1 << 20),
+        shape_buckets=(256, 1024, 4096, 16384, 65536, 262144, 1 << 20,
+                       max(rows, 1 << 20))))
+    passed, failed = [], {}
+    try:
+        tables = support.gen_tables()
+        scans = support.scans_of(tables)
+        for q in torch_tpcds_support.query_order(support.QUERIES):
+            got = run_plan(support.QUERIES[q](scans, "bhj")).to_pandas()
+            exp = queries.ORACLES[q](tables)
+            exp.columns = list(got.columns)
+            try:
+                queries.assert_frames_match(got, exp, f"{q}/bhj")
+                passed.append(q)
+            except AssertionError as e:
+                if q in TPCDS99_RANK_TIES and e.args and \
+                        e.args[0][1] == TPCDS99_RANK_TIES[q]:
+                    left_out[q] = (
+                        "only its rank column differs: rank over float "
+                        "SUMs that K3 adds with atomics in the card's "
+                        "order, so sums pandas finds exactly tied come "
+                        "out ulps apart and rank splits them; every other "
+                        "column equal, and equal on the CPU twin")
+                else:
+                    failed[q] = repr(e)[:300]
+    finally:
+        set_config(old)
+    if failed:
+        raise AssertionError(f"tpcds99: {len(failed)} queries differ from "
+                             f"their oracles: {failed}")
+    return passed, left_out
+
+
+def strings_phase(torch, rows: int, seed: int, kernels, device="cuda"):
+    """tpcds_brand, tpcds_customer (one task over `rows`, then the
+    exchange over CUSTOMER_EXCHANGE_ROWS) and tpcds99."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.config import EngineConfig
+    from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col
+    from blaze_tpu_torch.ops import (AggMode, FileRange, HashAggregateExec,
+                                     IpcReaderExec, IpcReadMode,
+                                     ParquetScanExec, ShuffleWriterExec)
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.shuffle_writer import spark_partition_ids
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.executor import execute_task
+
+    work = os.path.join(REPO, "build", "chip_smoke_strings")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    results = {}
+
+    def ctx():
+        # the aggregate holds its whole input (max_materialize_rows =
+        # the fact rows), as join_agg does
+        return ExecContext(device=device, config=EngineConfig(
+            device=device, max_materialize_rows=max(rows, 1 << 22)))
+
+    def scan(p):
+        return ParquetScanExec([[FileRange(p)]])
+
+    def counted(task, blob, n, **extra):
+        def run():
+            return list(execute_task(blob, ctx()))
+        out, wall, launches, transfers = run_counted(torch, run, kernels)
+        prof = profile_run(torch, run, task, wall)
+        strings_line(task, n, wall, launches, transfers, prof, **extra)
+        results[task] = {"launches": launches, "wall_s": wall}
+        return pa.Table.from_batches(out) if out else None
+
+    try:
+        t0 = time.perf_counter()
+        fact_path = os.path.join(work, "store_sales.parquet")
+        item, qty, price = write_store_sales(fact_path, rows, seed)
+        items = item_strings_table(seed)
+        item_path = os.path.join(work, "item.parquet")
+        pq.write_table(items, item_path, row_group_size=ITEMS // ROW_GROUPS)
+        customers, ids, perm = customer_table(seed)
+        cust_path = os.path.join(work, "customer.parquet")
+        pq.write_table(customers, cust_path,
+                       row_group_size=CUSTOMERS // ROW_GROUPS)
+        ids_by_key = np.empty_like(ids)
+        ids_by_key[perm] = ids
+        write_s = time.perf_counter() - t0
+
+        # tpcds_brand
+        got = counted("tpcds_brand",
+                      task_to_proto(tpcds_brand_plan(scan(fact_path),
+                                                     scan(item_path)), 0),
+                      rows, item_rows=ITEMS, row_groups=ROW_GROUPS,
+                      parquet_write_s=write_s)
+        err, n_out = check_brand(got, item, qty, price, items)
+        emit({"phase": "strings_check", "task": "tpcds_brand",
+              "oracle": "pyarrow Table.join, group_by, sort_by",
+              "rows_out": n_out, "sum_max_rel_err": err,
+              "equal": "i_brand_id, i_brand and their order exactly"})
+
+        # tpcds_customer: one task over every fact row
+        got = counted("tpcds_customer",
+                      task_to_proto(tpcds_customer_plan(
+                          scan(fact_path), scan(cust_path)), 0),
+                      rows, customer_rows=CUSTOMERS, row_groups=ROW_GROUPS)
+        cnt, tot = customer_oracle(item, qty, price)
+        present = np.flatnonzero(cnt)
+        order = np.argsort(ids_by_key[present].view("S16").ravel(),
+                           kind="stable")
+        exp_ids = [bytes(ids_by_key[k]).decode()
+                   for k in present[order][:100]]
+        got_ids = got.column("c_customer_id").to_pylist()
+        if got_ids != exp_ids:
+            raise AssertionError("tpcds_customer: the first 100 "
+                                 "c_customer_id differ from numpy's")
+        err = check_customer_rows(got_ids,
+                                  got.column("year_total").to_numpy(),
+                                  cnt, tot, ids_by_key, "tpcds_customer")
+
+        # the same aggregate over Spark's hash exchange on c_customer_id
+        n_ex = min(rows, CUSTOMER_EXCHANGE_ROWS)
+        split = n_ex // MAP_SPLITS
+        paths = []
+        for i in range(MAP_SPLITS):
+            sl = slice(i * split, (i + 1) * split)
+            paths.append(os.path.join(work, f"store_sales_{i}.parquet"))
+            write_parquet(paths[-1], item[sl], qty[sl], price[sl])
+        n_ex = split * MAP_SPLITS
+        splits = ParquetScanExec([[FileRange(p)] for p in paths])
+        outputs = [(os.path.join(work, f"cust_{i}.data"),
+                    os.path.join(work, f"cust_{i}.index"))
+                   for i in range(MAP_SPLITS)]
+        partial = tpcds_customer_plan(splits, scan(cust_path), partial=True)
+        map_blobs = [task_to_proto(ShuffleWriterExec(
+            partial, [Col("c_customer_id")], SHUFFLE_PARTITIONS,
+            *outputs[i]), i) for i in range(MAP_SPLITS)]
+        reduce_plan = HashAggregateExec(
+            IpcReaderExec("shuffle", partial.schema, SHUFFLE_PARTITIONS,
+                          IpcReadMode.CHANNEL_AND_FILE_SEGMENT),
+            keys=[(Col("c_customer_id"), "c_customer_id")],
+            aggs=[(AggExpr(AggFn.SUM, Col("year_total")), "year_total")],
+            mode=AggMode.FINAL)
+
+        def exchange():
+            _, written = run_stage(torch, map_blobs, device)
+            outs, counters = run_stage(torch, reduce_tasks(
+                reduce_plan, outputs, SHUFFLE_PARTITIONS), device)
+            return outs, {**counters, **written}
+
+        # 4 + 200 tasks: one run, under the profiler
+        (outs, counters), wall, launches, transfers, prof = \
+            counted_profiled(torch, exchange, "tpcds_customer_exchange",
+                             kernels)
+        cnt_ex, tot_ex = customer_oracle(item[:n_ex], qty[:n_ex],
+                                         price[:n_ex])
+        all_ids, all_sums, sample = [], [], []
+        for r, batches in enumerate(outs):
+            for rb in batches:
+                cid = rb.column(0).to_pylist()
+                all_ids += cid
+                all_sums += rb.column(1).to_pylist()
+                if len(sample) < PID_SAMPLE:
+                    sample += [(c, r) for c in cid[:PID_SAMPLE
+                                                   - len(sample)]]
+        if len(all_ids) != int((cnt_ex > 0).sum()) or \
+                len(set(all_ids)) != len(all_ids):
+            raise AssertionError("tpcds_customer_exchange: groups differ "
+                                 "from numpy's")
+        ex_err = check_customer_rows(all_ids, all_sums, cnt_ex, tot_ex,
+                                     ids_by_key, "tpcds_customer_exchange")
+        bad = [c for c, r in sample
+               if _spark_bytes(c.encode()) % SHUFFLE_PARTITIONS != r]
+        if bad:
+            raise AssertionError(f"tpcds_customer_exchange: {len(bad)} "
+                                 "groups in a reducer Spark would not send "
+                                 "them to")
+        # and the map side's partition ids of 65,536 customer ids, bit for
+        # bit against the Python oracle
+        sample_rb = customers.slice(0, PID_SAMPLE).to_batches()[0]
+        from blaze_tpu_torch.batch import ColumnBatch
+        from blaze_tpu_torch.exprs.ir import BoundCol
+        from blaze_tpu_torch.types import DataType
+
+        cb = ColumnBatch.from_arrow(sample_rb, device=device)
+        pid = spark_partition_ids(cb, [BoundCol(1, DataType.utf8())],
+                                  SHUFFLE_PARTITIONS).cpu().numpy()
+        exp_pid = [_spark_bytes(c.encode()) % SHUFFLE_PARTITIONS
+                   for c in sample_rb.column(1).to_pylist()]
+        if not np.array_equal(pid[:PID_SAMPLE], exp_pid):
+            raise AssertionError("partition ids of c_customer_id differ "
+                                 "from the Python Spark oracle")
+        strings_line("tpcds_customer_exchange", n_ex, wall, launches,
+                     transfers, prof, profiled_wall=True,
+                     map_tasks=MAP_SPLITS,
+                     partitions=SHUFFLE_PARTITIONS, groups=len(all_ids),
+                     shuffle_bytes=counters.get("shuffle_bytes_written", 0))
+        results["tpcds_customer_exchange"] = {"launches": launches,
+                                              "wall_s": wall}
+        emit({"phase": "strings_check", "task": "tpcds_customer",
+              "oracle": "numpy bincount over the join key; ids by byte "
+                        "order", "first_100_ids_equal": True,
+              "sum_max_rel_err": err, "exchange_groups": len(all_ids),
+              "exchange_sum_max_rel_err": ex_err,
+              "pid_sample": PID_SAMPLE, "pid_reducers_checked": len(sample),
+              "pid_oracle": "Python Murmur3_x86_32.hashUnsafeBytes, bit "
+                            "for bit"})
+
+        # tpcds99: the CPU twin's 99 queries on the card (the wall holds
+        # the tables' generation and the pandas oracles too)
+        def q99():
+            return tpcds99_check(TPCDS99_ROWS, device)
+
+        (passed, left_out), wall, launches, transfers, prof = \
+            counted_profiled(torch, q99, "tpcds99", kernels)
+        strings_line("tpcds99", TPCDS99_ROWS, wall, launches, transfers,
+                     prof, profiled_wall=True, flavour="bhj",
+                     queries_run=len(passed) + len(left_out),
+                     passed=len(passed), left_out=left_out,
+                     oracle="pandas oracles of tests/test_tpcds_queries.py")
+        results["tpcds99"] = {"launches": launches, "wall_s": wall}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def time_tree(torch, tree: str, rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
@@ -2839,10 +3362,13 @@ def compare_paths(torch, tree: str, rows: int, runs: int = 3):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=1 << 24,
+    ap.add_argument("--rows", type=int, default=1 << 23,
                     help="parquet rows of the path phase")
     ap.add_argument("--grouped-rows", type=int, default=1 << 22,
                     help="parquet rows of the grouped tasks")
+    ap.add_argument("--string-rows", type=int, default=1 << 24,
+                    help="store_sales rows of tpcds_brand and "
+                         "tpcds_customer")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--compare", metavar="DIR",
                     help="another checkout of the repository: time its K1, "
@@ -3026,6 +3552,8 @@ def main() -> int:
         res.update(join_phase(torch, args.rows, args.grouped_rows,
                               args.seed, kernels))
         res.update(window_phase(torch, args.rows, args.seed, kernels))
+        res.update(strings_phase(torch, args.string_rows, args.seed,
+                                 kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check, then timed at the most
@@ -3089,7 +3617,7 @@ def main() -> int:
     # this slice's tasks: their launches are added to each kernel's
     summary = []
     slice_tasks = [t for t in res if t.startswith(("window", "sort_",
-                                                   "union_limit"))]
+                                                   "union_limit", "tpcds"))]
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
          "blaze_tpu/ops/kernels/stats_pallas.py:75", "q6", k1_err),

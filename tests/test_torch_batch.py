@@ -116,15 +116,22 @@ def test_interop_rejects_mixed_capacity_and_strings():
         interop.batch_from_numpy(
             schema, [np.zeros(256, np.int32), np.zeros(512, np.int32)],
             [None, None], None, 10, "cpu")
+    # strings cross as codes with their dictionary; decimal128 waits
+    cb = interop.batch_from_numpy(
+        Schema([Field("s", DataType.utf8())]),
+        [np.array([1, 0, 1, 7], np.int32)], [np.array([1, 1, 1, 0], bool)],
+        None, 3, "cpu", dictionaries=[pa.array(["x", "y"])])
+    assert cb.to_pydict() == {"s": ["y", "x", "y"]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interop.batch_from_numpy(Schema([Field("s", DataType.utf8())]),
-                                 [np.zeros(4, np.int32)], [None], None, 4,
-                                 "cpu")
+        interop.batch_from_numpy(
+            Schema([Field("w", DataType.decimal(30, 2))]),
+            [np.zeros(4, np.int64)], [None], None, 4, "cpu")
 
 
-@pytest.mark.parametrize("typ", [pa.utf8(), pa.decimal128(30, 2)])
+# utf8 columns are dictionary-encoded since the strings slice
+@pytest.mark.parametrize("typ", [pa.decimal128(38, 10),
+                                 pa.decimal128(30, 2)])
 def test_unsupported_columns_raise_naming_roadmap(typ):
-    arr = pa.array(["a"]) if typ == pa.utf8() else pa.array(
-        [decimal.Decimal("1.5")], type=typ)
+    arr = pa.array([decimal.Decimal("1.5")], type=typ)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ColumnBatch.from_arrow(pa.record_batch({"c": arr}), device=CPU)

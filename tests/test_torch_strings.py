@@ -1,0 +1,956 @@
+"""Dictionary-encoded strings in the PyTorch port, against the JAX package
+and independent oracles, on the CPU.
+
+- `HostEvaluator` against the JAX package's, for every function it has
+  (pyarrow on both sides: Arrow-equal).
+- `lower_strings_host` (the port's dictionary and row paths) and
+  `unify_dictionaries` against the JAX package's: equal codes,
+  dictionaries and decoded values.
+- `ColumnBatch.from_arrow` / `to_arrow` round trips: NULLs, empty
+  strings, an all-NULL column (empty dictionary), a sliced array with an
+  offset, large_string, binary, non-ASCII, dictionary inputs that repeat
+  a value or differ between chunks.
+- String hashing, bit for bit, against the JAX package's
+  `hash_rows_host` and a pure-Python Spark oracle written here
+  (Murmur3_x86_32.hashUnsafeBytes / hashInt / hashLong): lengths 0-9,
+  bytes >= 0x80, multibyte UTF-8, string keys before, between and after
+  fixed-width keys, NULLs; the C++ chain against its Python plain
+  version; shuffle partition ids of string keys.
+- String sort keys (in memory, run merge, host sort) and window keys
+  against Python's `sorted` over UTF-8 bytes (U+1F600 sorts after
+  U+FF5E in bytes, before it in UTF-16); a dictionary that repeats a
+  value, where the JAX package's `sort_batch` ranks equal strings apart.
+- String keys in the aggregate (PARTIAL per batch on its own dictionary,
+  then FINAL), the joins (both dictionaries differ, NULLs, probe values
+  the build lacks; every join type; the grace join) and the exchange.
+- One TaskDefinition built with the JAX package's `task_to_proto` over
+  parquet files of several row groups (fact JOIN dimension on an int
+  key, LIKE on a string, GROUP BY a string, ORDER BY a string, LIMIT)
+  through both packages' `execute_task`: Arrow-equal.
+
+Integer, string and count results are compared exactly; float sums are
+compared within 1e-9 relative where the summation order differs.
+"""
+
+import hashlib
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+from blaze_tpu import ops as J
+from blaze_tpu.batch import ColumnBatch as JColumnBatch
+from blaze_tpu.config import EngineConfig as JaxConfig
+from blaze_tpu.exprs import hashing as jax_hashing
+from blaze_tpu.exprs import ir as jir
+from blaze_tpu.exprs.host_eval import HostEvaluator as JHostEvaluator
+from blaze_tpu.ops.base import ExecContext as JaxContext
+from blaze_tpu.ops.host_lower import lower_strings_host as jax_lower
+from blaze_tpu.ops.parquet_scan import FileRange as JRange
+from blaze_tpu.ops.parquet_scan import ParquetScanExec as JScan
+from blaze_tpu.ops.sort import sort_batch as jax_sort_batch
+from blaze_tpu.ops.util import unify_dictionaries as jax_unify
+from blaze_tpu.plan.serde import task_to_proto as jax_task_to_proto
+from blaze_tpu.runtime.executor import execute_task as jax_execute_task
+from blaze_tpu.runtime.executor import run_plan as jax_run_plan
+from blaze_tpu.types import DataType as JDataType
+from blaze_tpu.types import Schema as JSchema
+
+from blaze_tpu_torch import ColumnBatch
+from blaze_tpu_torch.config import EngineConfig, get_config, set_config
+from blaze_tpu_torch.exprs import hashing
+from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs.host_eval import HostEvaluator
+from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col, Literal
+from blaze_tpu_torch.exprs.optimize import bind_opt
+from blaze_tpu_torch.ops import (
+    AggMode,
+    ExecContext,
+    FileRange,
+    FilterExec,
+    HashAggregateExec,
+    HashJoinExec,
+    IpcReaderExec,
+    IpcReadMode,
+    JoinType,
+    MemoryScanExec,
+    ParquetScanExec,
+    ProjectExec,
+    ShuffleWriterExec,
+    SortExec,
+    SortKey,
+    SortMergeJoinExec,
+    WindowExec,
+    WindowFn,
+)
+from blaze_tpu_torch.ops.fused import FusedAggregateExec, FusedPipelineExec
+from blaze_tpu_torch.ops.host_lower import lower_strings_host
+from blaze_tpu_torch.ops.shuffle_writer import spark_partition_ids
+from blaze_tpu_torch.ops.sort import sort_batch
+from blaze_tpu_torch.ops.util import (
+    dictionary_ranks,
+    unify_dictionaries,
+)
+from blaze_tpu_torch.planner.fuse import fuse_pipelines
+from blaze_tpu_torch.runtime import dispatch, native
+from blaze_tpu_torch.runtime.executor import execute_task, run_plan
+from blaze_tpu_torch.types import DataType, Field, Schema
+
+from torch_support import assert_arrow_equal
+
+CPU = torch.device("cpu")
+# U+FF5E sorts before U+1F600 in UTF-8 bytes and after it in UTF-16
+WORDS = ["", "a", "ab", "abc", "abcd", "abcde", "Books", "books", "Music",
+         " pad ", "é", "ß", "日本語", "～", "\U0001F600", "x\U0001F600y",
+         "zz", "Z"]
+
+
+@pytest.fixture(autouse=True)
+def _cpu_config():
+    old = get_config()
+    set_config(EngineConfig(device="cpu"))
+    yield
+    set_config(old)
+
+
+def strings(rng, n, null_p=0.15, words=WORDS):
+    vals = [words[i] for i in rng.integers(0, len(words), n)]
+    return [None if rng.random() < null_p else v for v in vals]
+
+
+def rows_of(table):
+    return list(zip(*(c.to_pylist() for c in table.columns)))
+
+
+def port_table(op):
+    return run_plan(op, ExecContext(device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# a pure-Python Spark oracle (Murmur3_x86_32, seed 42)
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def _mix_k1(k):
+    k = (k * 0xCC9E2D51) & M32
+    return (_rotl(k, 15) * 0x1B873593) & M32
+
+
+def _mix_h1(h, k):
+    h = _rotl(h ^ k, 13)
+    return (h * 5 + 0xE6546B64) & M32
+
+
+def _fmix(h, n):
+    h ^= n
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & M32
+    return h ^ (h >> 16)
+
+
+def spark_bytes(b: bytes, seed: int) -> int:
+    h = seed
+    aligned = len(b) - len(b) % 4
+    for i in range(0, aligned, 4):
+        h = _mix_h1(h, _mix_k1(int.from_bytes(b[i:i + 4], "little")))
+    for x in b[aligned:]:
+        h = _mix_h1(h, _mix_k1((x - 256 if x >= 128 else x) & M32))
+    return _fmix(h, len(b))
+
+
+def spark_int(v: int, seed: int) -> int:
+    return _fmix(_mix_h1(seed, _mix_k1(v & M32)), 4)
+
+
+def spark_long(v: int, seed: int) -> int:
+    v &= (1 << 64) - 1
+    h = _mix_h1(seed, _mix_k1(v & M32))
+    return _fmix(_mix_h1(h, _mix_k1(v >> 32)), 8)
+
+
+def spark_row_hash(row, kinds) -> int:
+    """Spark's hash of one row: NULL keeps the running hash."""
+    h = 42
+    for v, kind in zip(row, kinds):
+        if v is None:
+            continue
+        if kind == "utf8":
+            h = spark_bytes(v.encode("utf-8"), h)
+        elif kind == "binary":
+            h = spark_bytes(v, h)
+        elif kind == "int32":
+            h = spark_int(v, h)
+        elif kind == "int64":
+            h = spark_long(v, h)
+        else:  # float64: doubleToLongBits, -0.0 as 0.0
+            bits = np.array([0.0 if v == 0 else v]).view(np.int64)[0]
+            h = spark_long(int(bits), h)
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+# ---------------------------------------------------------------------------
+# the host evaluator against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _host_exprs(m, DT):
+    """Every host-evaluated function, over (s: utf8, t: utf8, b: binary,
+    i: int32) built in one IR module `m`."""
+    s, t = m.BoundCol(0, DT.utf8()), m.BoundCol(1, DT.utf8())
+    b, i = m.BoundCol(2, DT.binary()), m.BoundCol(3, DT.int32())
+
+    def fn(name, *args):
+        return m.ScalarFn(name, tuple(args))
+
+    def lit(v):
+        return m.Literal(v, DT.utf8())
+
+    def n(v):
+        return m.Literal(v, DT.int32())
+
+    out = {f: fn(f, s) for f in ("lower", "upper", "trim", "ltrim",
+                                 "rtrim", "length", "char_length",
+                                 "reverse", "octet_length", "md5",
+                                 "sha224", "sha256", "sha384", "sha512")}
+    out.update({
+        "starts_with": fn("starts_with", s, lit("ab")),
+        "ends_with": fn("ends_with", s, lit("c")),
+        "contains": fn("contains", s, lit("b")),
+        "like": fn("like", s, lit("a%c_")),
+        "like_under": fn("like", s, lit("_")),
+        "substring_1_2": fn("substring", s, n(1), n(2)),
+        "substring_0": fn("substring", s, n(0)),
+        "substring_neg": fn("substring", s, n(-2), n(1)),
+        "substring_neg_long": fn("substring", s, n(-2), n(5)),
+        "concat": fn("concat", s, t),
+        "replace": fn("replace", s, lit("b"), lit("XY")),
+        "null_if": fn("null_if", s, t),
+        "md5_binary": fn("md5", b),
+        "eq": m.BinaryOp(m.Op.EQ, s, t),
+        "lt": m.BinaryOp(m.Op.LT, s, lit("b")),
+        "gte": m.BinaryOp(m.Op.GTE, s, t),
+        "in_list": m.InList(s, (lit("a"), lit("\U0001F600"), lit("Z"))),
+        "not_in": m.InList(s, (lit("a"), lit("")), True),
+        "is_null": m.IsNull(s),
+        "is_not_null": m.IsNotNull(t),
+        "if": m.If(m.BinaryOp(m.Op.GT, i, n(0)), s, t),
+        "case": m.CaseWhen(((m.BinaryOp(m.Op.EQ, s, lit("a")), t),),
+                           lit("other")),
+        "coalesce": m.Coalesce((s, t, lit("none"))),
+        "cast_int": m.Cast(i, DT.utf8()),
+        "length_plus": m.BinaryOp(m.Op.ADD, fn("length", s), i),
+    })
+    return out
+
+
+_HOST_NAMES = sorted(_host_exprs(ir, DataType))
+
+
+@pytest.fixture(scope="module")
+def host_arrays():
+    rng = np.random.default_rng(11)
+    n = 300
+    s = pa.array(strings(rng, n))
+    t = pa.array(strings(rng, n))
+    b = pa.array([None if v is None else v.encode() + bytes([0x80 + i % 100])
+                  for i, v in enumerate(strings(rng, n))], pa.binary())
+    i = pa.array(rng.integers(-3, 4, n).astype(np.int32))
+    return [s, t, b, i]
+
+
+@pytest.mark.parametrize("name", _HOST_NAMES)
+def test_host_evaluator_matches_jax(name, host_arrays):
+    port_schema = Schema([Field("s", DataType.utf8()),
+                          Field("t", DataType.utf8()),
+                          Field("b", DataType.binary()),
+                          Field("i", DataType.int32())])
+    got = HostEvaluator(port_schema, host_arrays).evaluate(
+        _host_exprs(ir, DataType)[name])
+    from blaze_tpu.types import Field as JField
+
+    jschema = JSchema([JField("s", JDataType.utf8()),
+                       JField("t", JDataType.utf8()),
+                       JField("b", JDataType.binary()),
+                       JField("i", JDataType.int32())])
+    exp = JHostEvaluator(jschema, host_arrays).evaluate(
+        _host_exprs(jir, JDataType)[name])
+    assert got.equals(exp), (name, got[:8], exp[:8])
+
+
+def test_host_hash_and_to_date_against_oracles(host_arrays):
+    """The port's host arms the JAX package lacks: Spark's hash() of a
+    string and an int (the Python oracle above), to_date of strings."""
+    s, _, _, i = host_arrays
+    schema = Schema([Field("s", DataType.utf8()), Field("t", DataType.utf8()),
+                     Field("b", DataType.binary()),
+                     Field("i", DataType.int32())])
+    e = ir.ScalarFn("hash", (ir.BoundCol(0, DataType.utf8()),
+                             ir.BoundCol(3, DataType.int32())))
+    got = HostEvaluator(schema, host_arrays).evaluate(e).to_pylist()
+    exp = [spark_row_hash(r, ["utf8", "int32"])
+           for r in zip(s.to_pylist(), i.to_pylist())]
+    assert got == exp
+    d = pa.array(["2024-02-29", "1969-12-31", "nope", None, "2000-1-1"])
+    e = ir.ScalarFn("to_date", (ir.BoundCol(0, DataType.utf8()),))
+    got = HostEvaluator(Schema([Field("d", DataType.utf8())]), [d]) \
+        .evaluate(e)
+    assert got.type == pa.date32()
+    import datetime as dtm
+
+    assert got.to_pylist()[:2] == [dtm.date(2024, 2, 29),
+                                   dtm.date(1969, 12, 31)]
+    assert got.to_pylist()[2:4] == [None, None]
+
+
+# ---------------------------------------------------------------------------
+# lowering and unification against the JAX package
+# ---------------------------------------------------------------------------
+
+def _pair_batch(rng, n=200, capacity=256):
+    rb = pa.record_batch({
+        "s": pa.array(strings(rng, n)), "a": pa.array(
+            rng.integers(0, 5, n).astype(np.int32)),
+        "t": pa.array(strings(rng, n, words=WORDS[:6]))})
+    return (ColumnBatch.from_arrow(rb, capacity, CPU),
+            JColumnBatch.from_arrow(rb, capacity))
+
+
+def _lowering_cases(m, DT):
+    s, a = m.BoundCol(0, DT.utf8()), m.BoundCol(1, DT.int32())
+    t = m.BoundCol(2, DT.utf8())
+
+    def lit(v):
+        return m.Literal(v, DT.utf8())
+    return [
+        m.BinaryOp(m.Op.EQ, s, lit("a")),                    # dictionary
+        m.ScalarFn("upper", (s,)),                            # dictionary
+        m.IsNull(s),                                          # NULL entry
+        m.Coalesce((s, lit("z"))),                            # NULL entry
+        m.ScalarFn("length", (m.ScalarFn("substring", (
+            s, m.Literal(2, DT.int32()))),)),                 # nested
+        m.ScalarFn("concat", (s, t)),                         # rows
+        m.If(m.BinaryOp(m.Op.GT, a, m.Literal(2, DT.int32())), s, t),
+        lit("const"),                                         # literal
+        m.Literal(None, DT.utf8()),
+        m.Cast(a, DT.utf8()),
+    ]
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_lower_strings_host_matches_jax(case):
+    rng = np.random.default_rng(case)
+    port, jax_cb = _pair_batch(rng)
+    pe = _lowering_cases(ir, DataType)[case]
+    je = _lowering_cases(jir, JDataType)[case]
+    (pr,), pn, paug = lower_strings_host([pe], port)
+    (jr,), jn, jaug = jax_lower([je], jax_cb)
+    assert pn >= 1 and isinstance(pr, ir.BoundCol)
+    got = paug.to_arrow().column(pr.index)
+    if not isinstance(jr, jir.BoundCol):
+        # the JAX package leaves a cast to a string to its device tier,
+        # which refuses it; the port evaluates it on the host
+        assert case == 9
+        exp = pc.cast(port.to_arrow().column(1), pa.utf8())
+    else:
+        exp = jaug.to_arrow().column(jr.index)
+    assert got.equals(exp), (case, got[:10], exp[:10])
+
+
+def test_lowering_counts_its_path():
+    rng = np.random.default_rng(3)
+    port, _ = _pair_batch(rng)
+    s = ir.BoundCol(0, DataType.utf8())
+    t = ir.BoundCol(2, DataType.utf8())
+    with dispatch.counting() as c:
+        lower_strings_host([ir.ScalarFn("upper", (s,)),
+                            ir.ScalarFn("concat", (s, t))], port)
+    assert c.counts.get("host_lower_dictionary") == 1
+    assert c.counts.get("host_lower_rows") == 1
+
+
+def test_unify_dictionaries_matches_jax():
+    rng = np.random.default_rng(5)
+    rbs = [pa.record_batch({"s": pa.array(strings(rng, 50 + 20 * k,
+                                                  words=WORDS[k:]))})
+           for k in range(4)]
+    rbs.append(pa.record_batch({"s": pa.array([None, None], pa.utf8())}))
+    got = unify_dictionaries([ColumnBatch.from_arrow(r, device=CPU)
+                              for r in rbs])
+    exp = jax_unify([JColumnBatch.from_arrow(r) for r in rbs])
+    d = got[0].columns[0].dictionary
+    assert all(b.columns[0].dictionary is d for b in got)
+    assert d.equals(exp[0].columns[0].dictionary)
+    assert len(pc.unique(d)) == len(d)
+    for g, e, rb in zip(got, exp, rbs):
+        n = rb.num_rows
+        gm = g.columns[0].validity
+        live = np.ones(n, bool) if gm is None else gm[:n].numpy()
+        np.testing.assert_array_equal(
+            g.columns[0].values[:n].numpy()[live],
+            np.asarray(e.columns[0].values)[:n][live])
+        assert g.to_arrow().equals(rb)
+
+
+# ---------------------------------------------------------------------------
+# the host boundary
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arr", [
+    pa.array(["a", None, "", "a", "é\U0001F600", None]),
+    pa.array([None, None, None], pa.utf8()),
+    pa.array([], pa.utf8()),
+    pa.array(["x", "yy", None, "zzz", "yy", "w"]).slice(2, 3),
+    pa.array(["big", None, "", "日本"], pa.large_string()),
+    pa.array([b"\x00\xff", None, b"", b"\x80"], pa.binary()),
+    pa.array([b"\x01", b"\x02\x03"], pa.large_binary()),
+    pa.DictionaryArray.from_arrays(pa.array([2, 0, None, 1], pa.int32()),
+                                   pa.array(["b", "a", "b"])),
+    pa.chunked_array([pa.array(["p", "q"]).dictionary_encode(),
+                      pa.array(["q", "r", None]).dictionary_encode()]),
+], ids=["nulls_empty", "all_null", "empty", "sliced", "large_string",
+        "binary", "large_binary", "dictionary_with_repeat",
+        "chunked_dictionaries"])
+def test_from_arrow_to_arrow_round_trip(arr):
+    typ = arr.type.value_type if pa.types.is_dictionary(arr.type) \
+        else arr.type
+    target = pa.binary() if pa.types.is_binary(typ) \
+        or pa.types.is_large_binary(typ) else pa.utf8()
+    rb = pa.Table.from_arrays([arr], names=["s"]) \
+        if isinstance(arr, pa.ChunkedArray) else pa.record_batch({"s": arr})
+    exp = arr.to_pylist()
+    for cap in (None, 1024):
+        cb = ColumnBatch.from_arrow(rb, cap, CPU)
+        got = cb.to_arrow().column(0)
+        assert got.type == target
+        assert got.to_pylist() == exp
+    assert cb.to_pydict() == {"s": exp}
+    assert cb.slice_host(1, 2).to_pydict()["s"] == exp[1:3]
+
+
+def test_padded_and_null_rows_decode_without_reading_codes():
+    cb = ColumnBatch.from_arrow(pa.record_batch({"s": pa.array(
+        ["a", None])}), 256, CPU)
+    cb.columns[0].values[1] = 99  # a NULL row's code indexes nothing
+    cb.columns[0].values[5:] = -7  # nor do the padding rows'
+    assert cb.to_arrow().column(0).to_pylist() == ["a", None]
+
+
+def test_from_arrow_pruned_keeps_positions():
+    schema = Schema([Field("a", DataType.int32()), Field("s", DataType.utf8()),
+                     Field("t", DataType.utf8())])
+    rb = pa.record_batch({"s": pa.array(["p", None, "q"])})
+    cb = ColumnBatch.from_arrow_pruned(rb, schema, [1], device=CPU)
+    assert [c.dtype for c in cb.columns] == [f.dtype for f in schema]
+    assert cb.columns[1].dictionary.to_pylist() == ["p", "q"]
+    # a pruned string position has no dictionary: it renders NULL
+    assert cb.to_pydict() == {"a": [0, 0, 0], "s": ["p", None, "q"],
+                              "t": [None, None, None]}
+
+
+def test_packed_batch_carries_dictionaries():
+    from blaze_tpu_torch.batch import PackedColumnBatch
+
+    rb = pa.record_batch({"s": pa.array(["u", None, "v", "u"]),
+                          "x": pa.array([1, 2, 3, 4])})
+    pb = PackedColumnBatch.from_arrow(rb, device=CPU)
+    assert pb.columns[0].dictionary.to_pylist() == ["u", "v"]
+    assert pb.to_arrow().equals(rb)
+
+
+# ---------------------------------------------------------------------------
+# hashing, bit for bit
+# ---------------------------------------------------------------------------
+
+HASH_WORDS = ["", "a", "ab", "abc", "abcd", "abcde", "abcdef", "abcdefg",
+              "abcdefgh", "abcdefghi", "é", "日本語", "\U0001F600!",
+              "ÿþ\u0080", "x" * 37]
+
+
+def test_string_chain_matches_python_and_spark():
+    vals = HASH_WORDS + [None]
+    seeds = (np.arange(len(vals), dtype=np.uint32) * 2654435761) \
+        .astype(np.uint32)
+    got = native.murmur3_strings_chain(pa.array(vals), seeds.copy())
+    plain = hashing.hash_strings_py(vals, seeds)
+    np.testing.assert_array_equal(got, plain)
+    for v, s, g in zip(vals, seeds, got):
+        exp = int(s) if v is None else spark_bytes(v.encode(), int(s))
+        assert int(g) == exp
+    raw = [bytes(range(k, k + n)) for k, n in ((0x7E, 5), (0x80, 3),
+                                               (0xF0, 9), (0, 0))]
+    got = native.murmur3_strings_chain(pa.array(raw, pa.binary()),
+                                       np.full(4, 42, np.uint32))
+    assert [int(x) for x in got] == [spark_bytes(b, 42) for b in raw]
+
+
+@pytest.mark.parametrize("layout", [
+    ("utf8",), ("utf8", "int32"), ("int32", "utf8"),
+    ("int64", "utf8", "float64"), ("utf8", "int64", "utf8"),
+    ("binary", "int32"),
+], ids=lambda x: "-".join(x))
+def test_hash_rows_host_matches_jax_and_spark(layout):
+    rng = np.random.default_rng(len(layout))
+    n = 120
+    cols_p, cols_j, rows = [], [], []
+    for kind in layout:
+        valid = rng.random(n) > 0.2
+        if kind in ("utf8", "binary"):
+            words = [w.encode() + b"\xfe" if kind == "binary" else w
+                     for w in HASH_WORDS]
+            vals = [words[i] for i in rng.integers(0, len(words), n)]
+            arr = pa.array([v if ok else None for v, ok in
+                            zip(vals, valid)],
+                           pa.binary() if kind == "binary" else pa.utf8())
+            enc = arr.dictionary_encode()
+            codes = enc.indices.fill_null(0).to_numpy(
+                zero_copy_only=False).astype(np.int32)
+            dt_p = DataType.binary() if kind == "binary" else DataType.utf8()
+            dt_j = JDataType.binary() if kind == "binary" \
+                else JDataType.utf8()
+            cols_p.append((codes, valid, dt_p, enc.dictionary))
+            cols_j.append((codes, valid, dt_j, enc.dictionary))
+            rows.append(arr.to_pylist())
+        else:
+            if kind == "float64":
+                vals = rng.choice([0.0, -0.0, 1.5, -2.25, 1e300], n)
+            else:
+                vals = rng.integers(-2**31, 2**31, n).astype(
+                    np.int64 if kind == "int64" else np.int32)
+            cols_p.append((vals, valid, getattr(DataType, kind)(), None))
+            cols_j.append((vals, valid, getattr(JDataType, kind)(), None))
+            rows.append([float(v) if kind == "float64" else int(v)
+                         if ok else None for v, ok in zip(vals, valid)])
+            rows[-1] = [v if ok else None for v, ok in zip(rows[-1], valid)]
+    got = hashing.hash_rows_host(cols_p, n)
+    if "binary" in layout:
+        # the JAX package casts a binary dictionary to utf8 before its
+        # chain, so bytes that are not UTF-8 raise (ROADMAP section 3)
+        with pytest.raises(pa.ArrowInvalid):
+            jax_hashing.hash_rows_host(cols_j, n)
+    else:
+        np.testing.assert_array_equal(got,
+                                      jax_hashing.hash_rows_host(cols_j, n))
+    exp = [spark_row_hash(r, layout) for r in zip(*rows)]
+    np.testing.assert_array_equal(got, np.array(exp, np.int32))
+
+
+def test_string_partition_ids_match_spark():
+    rng = np.random.default_rng(9)
+    n = 300
+    s = strings(rng, n, words=HASH_WORDS)
+    k = rng.integers(0, 50, n).astype(np.int32)
+    cb = ColumnBatch.from_arrow(pa.record_batch({"k": k, "s": pa.array(s)}),
+                                512, CPU)
+    with dispatch.counting() as c:
+        pid = spark_partition_ids(
+            cb, [bind_opt(Col("k"), cb.schema),
+                 bind_opt(Col("s"), cb.schema)], 200).numpy()
+    assert c.counts.get("host_hash_batches") == 1
+    exp = [spark_row_hash(r, ("int32", "utf8")) % 200
+           for r in zip(k.tolist(), s)]
+    np.testing.assert_array_equal(pid[:n], exp)
+    assert (pid[n:] == 200).all()
+
+
+def test_shuffle_writer_and_reader_on_string_keys(tmp_path):
+    rng = np.random.default_rng(13)
+    n = 500
+    s = strings(rng, n)
+    v = np.arange(n, dtype=np.int64)
+    batches = [ColumnBatch.from_arrow(pa.record_batch(
+        {"s": pa.array(s[i:i + 100]), "v": v[i:i + 100]}), device=CPU)
+        for i in range(0, n, 100)]
+    scan = MemoryScanExec([batches], batches[0].schema)
+    data, index = str(tmp_path / "d"), str(tmp_path / "i")
+    list(ShuffleWriterExec(scan, [Col("s")], 8, data, index).execute(
+        0, ExecContext(device="cpu")))
+    from blaze_tpu_torch.io.ipc import partition_ranges
+    from blaze_tpu_torch.ops.ipc_reader import FileSegment
+
+    seen = []
+    for p, (off, length) in enumerate(partition_ranges(index)):
+        ctx = ExecContext(device="cpu")
+        ctx.resources["r"] = lambda _p, seg=FileSegment(data, off, length): \
+            [seg] if seg.length else []
+        reader = IpcReaderExec("r", scan.schema, 8,
+                               IpcReadMode.CHANNEL_AND_FILE_SEGMENT)
+        for cb in reader.execute(p, ctx):
+            for sv, vv in rows_of(cb.to_arrow()):
+                assert spark_row_hash((sv,), ("utf8",)) % 8 == p
+                seen.append((vv, sv))
+    assert sorted(seen) == sorted(zip(v.tolist(), s))
+
+
+# ---------------------------------------------------------------------------
+# sort and window keys against Python's order of UTF-8 bytes
+# ---------------------------------------------------------------------------
+
+def _utf8_sorted(vals, desc=False, nulls_first=True):
+    present = sorted((v for v in vals if v is not None),
+                     key=lambda x: x.encode("utf-8"), reverse=desc)
+    nulls = [None] * sum(v is None for v in vals)
+    return nulls + present if nulls_first else present + nulls
+
+
+@pytest.mark.parametrize("asc,nulls_first", [(True, True), (False, False),
+                                              (False, True)])
+@pytest.mark.parametrize("route", ["in_memory", "run_merge", "host"])
+def test_string_sort_matches_utf8_byte_order(route, asc, nulls_first):
+    rng = np.random.default_rng(17)
+    vals = strings(rng, 900)
+    batches = [ColumnBatch.from_arrow(pa.record_batch(
+        {"s": pa.array(vals[i:i + 150]),
+         "i": np.arange(i, i + 150, dtype=np.int32)}), device=CPU)
+        for i in range(0, 900, 150)]
+    scan = MemoryScanExec([batches], batches[0].schema)
+    key = Col("s") if route != "host" else ir.Coalesce(
+        (Col("s"), Literal(None, DataType.utf8())))
+    op = SortExec(scan, [SortKey(key, asc, nulls_first), SortKey(Col("i"))])
+    limit = 1 << 22 if route == "in_memory" else 200
+    set_config(EngineConfig(device="cpu", max_materialize_rows=limit,
+                            batch_size=128))
+    with dispatch.counting() as c:
+        out = port_table(op)
+    assert c.counts.get("sort_route." + route) == 1
+    got = out.column("s").to_pylist()
+    assert got == _utf8_sorted(vals, not asc, nulls_first)
+    # ties keep the second key's order
+    exp = sorted(range(900), key=lambda r: (
+        (vals[r] is None) != nulls_first,
+        [] if vals[r] is None else
+        [(-b if not asc else b) for b in vals[r].encode()] +
+        ([256] if not asc else [-1]), r))
+    assert out.column("i").to_pylist() == exp
+
+
+def test_repeated_dictionary_value_ranks_equal():
+    """A dictionary holding "b" twice: the port gives both one rank, so
+    the second key orders them; the JAX package's `sort_batch` ranks the
+    two positions apart and orders by code first (ROADMAP section 3)."""
+    d = pa.DictionaryArray.from_arrays(
+        pa.array([0, 2, 1, 0, 2], pa.int32()), pa.array(["b", "a", "b"]))
+    rb = pa.record_batch({"s": d, "x": pa.array([5, 1, 3, 2, 4])})
+    np.testing.assert_array_equal(dictionary_ranks(pa.array(
+        ["b", "a", "b"])), [1, 0, 1])
+    cb = ColumnBatch.from_arrow(rb, device=CPU)
+    keys = [SortKey(bind_opt(Col(n), cb.schema)) for n in ("s", "x")]
+    assert sort_batch(cb, keys).to_pydict()["x"] == [3, 1, 2, 4, 5]
+    jcb = JColumnBatch.from_arrow(rb)
+    from blaze_tpu.exprs.optimize import bind_opt as jbind
+
+    jkeys = [J.SortKey(jbind(jir.Col(n), jcb.schema)) for n in ("s", "x")]
+    assert jax_sort_batch(jcb, jkeys).to_pydict()["x"] == [3, 2, 5, 1, 4]
+
+
+def test_window_string_partition_and_order_keys():
+    rng = np.random.default_rng(19)
+    n = 400
+    part = strings(rng, n, null_p=0.1, words=["p", "q", "\U0001F600",
+                                              "～", "é"])
+    order = strings(rng, n, null_p=0.1)
+    batches = [ColumnBatch.from_arrow(pa.record_batch(
+        {"p": pa.array(part[i:i + 100]), "o": pa.array(order[i:i + 100]),
+         "i": np.arange(i, i + 100, dtype=np.int32)}), device=CPU)
+        for i in range(0, n, 100)]
+    scan = MemoryScanExec([batches], batches[0].schema)
+    op = WindowExec(scan, [Col("p")], [SortKey(Col("o")), SortKey(Col("i"))],
+                    [WindowFn("row_number", None, "rn"),
+                     WindowFn("rank", None, "rk"),
+                     WindowFn("lag", Col("o"), "prev"),
+                     WindowFn("count", Col("o"), "cnt")])
+    out = port_table(op).to_pydict()
+
+    def okey(r):
+        o = order[r]
+        return (o is not None, b"" if o is None else o.encode(), r)
+
+    groups = {}
+    for r in range(n):
+        groups.setdefault(part[r], []).append(r)
+    exp_rows = []
+    for p in sorted(groups, key=lambda x: (x is not None,
+                                           b"" if x is None
+                                           else x.encode())):
+        rs = sorted(groups[p], key=okey)
+        cnt = sum(order[r] is not None for r in rs)
+        for j, r in enumerate(rs):
+            exp_rows.append((p, order[r], r, j + 1,
+                             None if j == 0 else order[rs[j - 1]], cnt))
+    assert list(zip(out["p"], out["o"], out["i"], out["rn"], out["prev"],
+                    out["cnt"])) == exp_rows
+    # rank: peers by (o, i) are unique rows here
+    assert out["rk"] == out["rn"]
+
+
+# ---------------------------------------------------------------------------
+# aggregate, joins
+# ---------------------------------------------------------------------------
+
+def _batches(rng, n_batches, rows, words_of=lambda k: WORDS[k % 5:]):
+    out = []
+    for k in range(n_batches):
+        out.append(pa.record_batch({
+            "s": pa.array(strings(rng, rows, words=words_of(k))),
+            "v": pa.array(rng.integers(-50, 50, rows).astype(np.int64)),
+            "i": pa.array(np.arange(k * rows, (k + 1) * rows,
+                                    dtype=np.int32))}))
+    return out
+
+
+@pytest.mark.parametrize("two_phase", [False, True])
+def test_string_key_aggregate_across_dictionaries(two_phase):
+    rng = np.random.default_rng(23)
+    rbs = _batches(rng, 5, 120)
+    port = [ColumnBatch.from_arrow(rb, device=CPU) for rb in rbs]
+    aggs = [(AggExpr(AggFn.COUNT, Col("s")), "n"),
+            (AggExpr(AggFn.SUM, Col("v")), "t"),
+            (AggExpr(AggFn.COUNT_STAR, None), "c")]
+    scan = MemoryScanExec([port], port[0].schema)
+    if two_phase:
+        partial = HashAggregateExec(scan, [(Col("s"), "s")], aggs,
+                                    AggMode.PARTIAL)
+        op = HashAggregateExec(partial, [(Col("s"), "s")], aggs,
+                               AggMode.FINAL)
+    else:
+        op = HashAggregateExec(scan, [(Col("s"), "s")], aggs)
+    got = sorted(rows_of(port_table(op)),
+                 key=lambda r: (r[0] is not None, r[0] or ""))
+    tbl = pa.Table.from_batches(rbs)
+    g = tbl.group_by("s").aggregate([("s", "count"), ("v", "sum"),
+                                     ("i", "count")])
+    exp = sorted(zip(g.column("s").to_pylist(),
+                     g.column("s_count").to_pylist(),
+                     g.column("v_sum").to_pylist(),
+                     g.column("i_count").to_pylist()),
+                 key=lambda r: (r[0] is not None, r[0] or ""))
+    assert got == exp
+
+
+def test_first_last_over_strings_keep_their_dictionary():
+    """FIRST/LAST of a string come out as strings (both packages skip
+    NULL rows, as their FIRST/LAST of any type do); the JAX package
+    leaves the output without its dictionary, so it renders NULL
+    (ROADMAP section 3)."""
+    rb = pa.record_batch({"k": pa.array([1, 1, 2, 2]),
+                          "s": pa.array([None, "x", "y", "z"])})
+    cb = ColumnBatch.from_arrow(rb, device=CPU)
+    aggs = [(AggExpr(AggFn.FIRST, Col("s")), "f"),
+            (AggExpr(AggFn.LAST, Col("s")), "l")]
+    op = HashAggregateExec(MemoryScanExec([[cb]], cb.schema),
+                           [(Col("k"), "k")], aggs)
+    assert sorted(rows_of(port_table(op))) == [(1, "x", "x"),
+                                               (2, "y", "z")]
+    jcb = JColumnBatch.from_arrow(rb)
+    from blaze_tpu.exprs.ir import AggExpr as JAggExpr
+
+    jop = J.HashAggregateExec(
+        J.MemoryScanExec([[jcb]], jcb.schema), keys=[(jir.Col("k"), "k")],
+        aggs=[(JAggExpr(jir.AggFn.FIRST, jir.Col("s")), "f")],
+        mode=J.AggMode.COMPLETE)
+    assert jax_run_plan(jop).column("f").to_pylist() == [None, None]
+
+
+def _join_sides(rng):
+    left = _batches(rng, 3, 90, words_of=lambda k: WORDS[k:k + 9])
+    right = _batches(rng, 2, 70, words_of=lambda k: WORDS[3 * k:])
+    return left, right
+
+
+def _arrow_join(lt, rt, jt):
+    how = {JoinType.INNER: "inner", JoinType.LEFT: "left outer",
+           JoinType.RIGHT: "right outer", JoinType.FULL: "full outer",
+           JoinType.LEFT_SEMI: "left semi",
+           JoinType.LEFT_ANTI: "left anti"}[jt]
+    r = rt.rename_columns(["s2", "v2", "i2"])
+    out = lt.join(r, keys="s", right_keys="s2", join_type=how,
+                  coalesce_keys=False)
+    if jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+        return sorted(out.column("i").to_pylist())
+    return sorted(zip(out.column("i").to_pylist(),
+                      out.column("i2").to_pylist()),
+                  key=lambda x: (x[0] is None, x[0] or 0, x[1] is None,
+                                 x[1] or 0))
+
+
+_JOIN_CASES = [
+    pytest.param(kind, jt, id=f"{kind}-{jt.name}")
+    for kind in ("hash", "smj", "smj_grace")
+    for jt in (JoinType.INNER, JoinType.LEFT, JoinType.RIGHT, JoinType.FULL,
+               JoinType.LEFT_SEMI, JoinType.LEFT_ANTI)
+    # HashJoinExec builds its left side and refuses nothing here, but a
+    # RIGHT join of it is the sort-merge join's case
+    if not (kind == "hash" and jt is JoinType.RIGHT)]
+
+
+@pytest.mark.parametrize("kind,jt", _JOIN_CASES)
+def test_string_key_joins_match_arrow(kind, jt):
+    rng = np.random.default_rng(29)
+    left, right = _join_sides(rng)
+    lt, rt = pa.Table.from_batches(left), pa.Table.from_batches(right)
+
+    def scan(rbs):
+        bs = [ColumnBatch.from_arrow(rb, device=CPU) for rb in rbs]
+        return MemoryScanExec([bs], bs[0].schema)
+
+    if kind == "hash":
+        op = HashJoinExec(scan(left), scan(right), ["s"], ["s"], jt)
+    else:
+        op = SortMergeJoinExec(scan(left), scan(right), ["s"], ["s"], jt)
+    if kind == "smj_grace":
+        set_config(EngineConfig(device="cpu", max_materialize_rows=100,
+                                external_buckets=4))
+    out = port_table(op)
+    if jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+        got = sorted(out.column("i").to_pylist())
+    else:
+        got = sorted(zip(out.column(2).to_pylist(),
+                         out.column(5).to_pylist()),
+                     key=lambda x: (x[0] is None, x[0] or 0,
+                                    x[1] is None, x[1] or 0))
+    assert got == _arrow_join(lt, rt, jt)
+
+
+# ---------------------------------------------------------------------------
+# fusion keeps dictionaries and refuses host work
+# ---------------------------------------------------------------------------
+
+def test_fusion_passes_dictionaries_and_leaves_host_stages_out():
+    rb = pa.record_batch({"s": pa.array(["a", "b", None, "a"]),
+                          "v": pa.array([1, 2, 3, 4], pa.int64())})
+    cb = ColumnBatch.from_arrow(rb, device=CPU)
+    scan = MemoryScanExec([[cb]], cb.schema)
+    chain = ProjectExec(FilterExec(scan, Col("v") > 1),
+                        [(Col("s"), "s2"), (Col("v") * 2, "w")])
+    fused = fuse_pipelines(chain)
+    assert isinstance(fused, FusedPipelineExec)
+    assert port_table(fused).to_pydict() == {"s2": ["b", None, "a"],
+                                             "w": [4, 6, 8]}
+    host = HashAggregateExec(
+        FilterExec(scan, Col("s") == Literal("a", DataType.utf8())), [],
+        [(AggExpr(AggFn.COUNT_STAR, None), "n")])
+    plan = fuse_pipelines(host)
+    # the host filter runs op by op under the fused carry, in no chain
+    nodes = list(_walk(plan))
+    assert any(isinstance(o, FilterExec) for o in nodes)
+    assert not any(st.host for o in nodes
+                   if isinstance(o, FusedPipelineExec) for st in o.stages)
+    assert port_table(plan).to_pydict() == {"n": [2]}
+    # an aggregate whose argument needs the host keeps its own operator
+    arg = HashAggregateExec(scan, [], [(AggExpr(
+        AggFn.COUNT, ir.ScalarFn("upper", (Col("s"),))), "n")])
+    assert isinstance(fuse_pipelines(arg), HashAggregateExec)
+    assert port_table(arg).to_pydict() == {"n": [3]}
+
+
+def _walk(op):
+    yield op
+    for c in op.children:
+        yield from _walk(c)
+
+
+# ---------------------------------------------------------------------------
+# time-of-day and hash functions on the device
+# ---------------------------------------------------------------------------
+
+def test_time_functions_and_hash_against_oracles():
+    import datetime as dtm
+
+    rng = np.random.default_rng(31)
+    us = rng.integers(-(10 ** 15), 10 ** 15, 200)
+    days = rng.integers(-40000, 40000, 200).astype(np.int32)
+    rb = pa.record_batch({
+        "ts": pa.array(us, pa.int64()).cast(pa.timestamp("us")),
+        "d": pa.array(days, pa.int32()).cast(pa.date32()),
+        "k": pa.array(rng.integers(-9, 9, 200).astype(np.int32))})
+    cb = ColumnBatch.from_arrow(rb, device=CPU)
+    exprs = [(ir.ScalarFn(f, (Col("ts"),)), f) for f in (
+        "hour", "minute", "second", "to_date", "weekofyear")]
+    exprs += [(ir.ScalarFn("weekofyear", (Col("d"),)), "wd"),
+              (ir.ScalarFn("hash", (Col("k"), Col("ts"))), "h")]
+    out = port_table(ProjectExec(MemoryScanExec([[cb]], cb.schema),
+                                 exprs)).to_pydict()
+    epoch = dtm.datetime(1970, 1, 1)
+    for j, u in enumerate(us.tolist()):
+        t = epoch + dtm.timedelta(microseconds=u)
+        assert (out["hour"][j], out["minute"][j], out["second"][j]) == (
+            t.hour, t.minute, t.second)
+        assert out["to_date"][j] == t.date()
+        assert out["weekofyear"][j] == t.isocalendar()[1]
+        d = dtm.date(1970, 1, 1) + dtm.timedelta(days=int(days[j]))
+        assert out["wd"][j] == d.isocalendar()[1]
+        assert out["h"][j] == spark_row_hash(
+            (int(rb.column(2)[j].as_py()), u), ("int32", "int64"))
+
+
+# ---------------------------------------------------------------------------
+# one TaskDefinition through both packages
+# ---------------------------------------------------------------------------
+
+def _write_parquet(path, table, row_group_size):
+    pq.write_table(table, path, row_group_size=row_group_size)
+    return str(path)
+
+
+def test_task_with_string_keys_through_both_packages(tmp_path):
+    """Fact JOIN dimension on an int key, a LIKE filter on a string,
+    GROUP BY a string, ORDER BY it, LIMIT, as JAX task bytes over
+    parquet files whose row groups carry dictionaries that differ in
+    order and content."""
+    rng = np.random.default_rng(37)
+    n_dim, n_fact = 300, 6000
+    brands = [f"brand {w} #{k}" for k in range(40)
+              for w in ("able", "bar", "ought")][:97]
+    dim = pa.table({
+        "i_item_sk": np.arange(n_dim, dtype=np.int32),
+        "i_brand": pa.array([None if k % 41 == 0 else
+                             brands[(k * 7) % len(brands)]
+                             for k in range(n_dim)]),
+        "i_category": pa.array([["Books", "Music", "Home"][k % 3]
+                                for k in range(n_dim)])})
+    fact = pa.table({
+        "ss_item_sk": rng.integers(0, n_dim + 20, n_fact).astype(np.int32),
+        "ss_qty": rng.integers(1, 10, n_fact).astype(np.int64)})
+    dim_p = _write_parquet(tmp_path / "item.parquet", dim, 64)
+    fact_p = _write_parquet(tmp_path / "ss.parquet", fact, 1000)
+    like = jir.ScalarFn("like", (jir.Col("i_brand"),
+                                 jir.Literal("%a%", JDataType.utf8())))
+    j = J.HashJoinExec(
+        J.FilterExec(JScan([[JRange(dim_p)]]), like),
+        JScan([[JRange(fact_p)]]), ["i_item_sk"], ["ss_item_sk"],
+        J.JoinType.INNER)
+    from blaze_tpu.exprs.ir import AggExpr as JAggExpr
+
+    agg = J.HashAggregateExec(
+        j, keys=[(jir.Col("i_brand"), "i_brand")],
+        aggs=[(JAggExpr(jir.AggFn.SUM, jir.Col("ss_qty")), "q"),
+              (JAggExpr(jir.AggFn.COUNT_STAR, None), "n")],
+        mode=J.AggMode.COMPLETE)
+    plan = J.LimitExec(J.SortExec(agg, [J.SortKey(jir.Col("i_brand"), False,
+                                                  False)]), 25)
+    blob = jax_task_to_proto(plan, 0)
+    got = pa.Table.from_batches(list(execute_task(
+        blob, ExecContext(device="cpu"))))
+    exp = pa.Table.from_batches(list(jax_execute_task(blob, JaxContext(
+        config=JaxConfig(host_filter_pushdown=False), mesh_mode="off"))))
+    assert_arrow_equal(got, exp)
+    # and against pyarrow: the same query
+    d = dim.filter(pc.match_like(dim.column("i_brand"), "%a%"))
+    jn = fact.join(d, keys="ss_item_sk", right_keys="i_item_sk",
+                   join_type="inner")
+    g = jn.group_by("i_brand").aggregate([("ss_qty", "sum"),
+                                          ("ss_qty", "count")])
+    rows = sorted(zip(g.column("i_brand").to_pylist(),
+                      g.column("ss_qty_sum").to_pylist(),
+                      g.column("ss_qty_count").to_pylist()),
+                  key=lambda r: r[0].encode(), reverse=True)
+    assert rows_of(got) == rows[:25]
