@@ -17,13 +17,14 @@ device byte buffer that crossed in one H2D copy (runtime/pack.py).
 `to_arrow` fetches a batch's buffers in one D2H copy.
 
 Types: bool, int8-64, float32/64, date32, timestamp_us, decimal(<=18)
-as unscaled int64, and utf8/binary as int32 dictionary codes on the
+as unscaled int64, decimal(>18) as a (capacity, 2) int64 tensor of
+[lo bit pattern, hi] limbs (the JAX package's `_decimal_limbs`, the
+reference's 16-byte decimal slot), and utf8/binary as int32 dictionary codes on the
 device with a host pyarrow dictionary beside them (`Column.dictionary`),
 as the JAX package carries strings (blaze_tpu/batch.py). Device compute
 sees only codes; codes of two batches compare only after
 `ops/util.unify_dictionaries`. A padded row's code indexes nothing, and
-a NULL row's code is 0 whatever the dictionary holds. Wide decimals
-raise NotImplementedError at the host boundary.
+a NULL row's code is 0 whatever the dictionary holds.
 """
 
 from __future__ import annotations
@@ -65,13 +66,17 @@ def default_device() -> torch.device:
     return torch.device(get_config().device)
 
 
-def check_fixed_width(dt: DataType) -> None:
-    """Refuse decimal(>18): its 128-bit limbs wait for item 3's rest."""
-    if dt.is_wide_decimal:
-        raise NotImplementedError(
-            f"{dt} columns: decimal128 limbs wait for ROADMAP "
-            "'Modules to port' item 3 (decimal128)"
-        )
+def value_shape(dt: DataType, capacity: int) -> Tuple[int, ...]:
+    """Shape of a column's device values: (capacity, 2) limbs for a
+    decimal(>18), else (capacity,)."""
+    return (capacity, 2) if dt.is_wide_decimal else (capacity,)
+
+
+def zero_values(dt: DataType, capacity: int,
+                device: torch.device) -> torch.Tensor:
+    """Zero device values of a column of `dt`."""
+    return torch.zeros(value_shape(dt, capacity), dtype=torch_dtype(dt),
+                       device=device)
 
 
 def string_value_type(dt: DataType):
@@ -152,7 +157,7 @@ class Column:
     """One column: padded device values + optional validity."""
 
     dtype: DataType
-    values: torch.Tensor  # physical dtype, shape (capacity,)
+    values: torch.Tensor  # physical dtype, shape value_shape(dtype, cap)
     validity: Optional[torch.Tensor] = None  # bool (capacity,) or None
     dictionary: Optional[object] = None  # pyarrow Array for utf8/binary
 
@@ -235,8 +240,7 @@ class ColumnBatch:
         pres = set(present)
         it = iter(sub.columns)
         cols = [next(it) if i in pres else
-                Column(f.dtype, torch.zeros(cap, dtype=torch_dtype(f.dtype),
-                                            device=dev))
+                Column(f.dtype, zero_values(f.dtype, cap, dev))
                 for i, f in enumerate(schema)]
         return ColumnBatch(schema, cols, rb.num_rows)
 
@@ -270,6 +274,8 @@ class ColumnBatch:
                     mask = mask[sel]
             if dt.is_string_like:
                 arr = decode_strings(vals, mask, col.dictionary, dt)
+            elif dt.is_wide_decimal:
+                arr = _decimal_from_limbs(vals, mask, dt.precision, dt.scale)
             elif dt.id is TypeId.DECIMAL:
                 arr = _decimal_from_unscaled_i64(
                     vals.astype(np.int64), mask, dt.precision, dt.scale)
@@ -352,8 +358,8 @@ class PackedColumnBatch(ColumnBatch):
             values = next(it)
             cols.append(Column(field.dtype, values,
                                next(it) if valid is not None else None, d))
-        key = (cap, tuple((str(c.values.dtype), c.validity is not None)
-                          for c in cols))
+        key = (cap, tuple((str(c.values.dtype), tuple(c.values.shape[1:]),
+                           c.validity is not None) for c in cols))
         return PackedColumnBatch(schema, cols, n, None, buf, key)
 
 
@@ -370,7 +376,6 @@ def host_columns(rb):
     out = []
     for i, field in enumerate(schema):
         dt = field.dtype
-        check_fixed_width(dt)
         arr = rb.column(i)
         if isinstance(arr, pa.ChunkedArray):
             if pa.types.is_dictionary(arr.type):
@@ -381,6 +386,8 @@ def host_columns(rb):
         dictionary = None
         if dt.is_string_like:
             np_vals, dictionary = encode_strings(arr, dt)
+        elif dt.is_wide_decimal:
+            np_vals = _decimal_limbs(arr)
         elif dt.id is TypeId.DECIMAL:
             np_vals = _decimal_unscaled_i64(arr)
         elif dt.id is TypeId.TIMESTAMP_US:
@@ -410,7 +417,7 @@ def _pad(a: np.ndarray, cap: int, fill) -> np.ndarray:
         if a.flags.writeable and a.flags.c_contiguous:
             return a
         return np.array(a, order="C")
-    out = np.full(cap, fill, dtype=a.dtype)
+    out = np.full((cap,) + a.shape[1:], fill, dtype=a.dtype)
     out[: len(a)] = a
     return out
 
@@ -439,6 +446,31 @@ def _decimal_unscaled_i64(arr) -> np.ndarray:
     return np.ascontiguousarray(lo)
 
 
+def _decimal_limbs(arr) -> np.ndarray:
+    """(n, 2) little-endian int64 limbs [lo bit pattern, hi] of a
+    decimal128 array: its full 16-byte representation."""
+    buf = arr.buffers()[1]
+    n = len(arr)
+    if buf is None:
+        return np.zeros((n, 2), dtype=np.int64)
+    raw = np.frombuffer(buf, dtype=np.int64)
+    start = arr.offset * 2
+    return raw[start: start + 2 * n].reshape(n, 2).copy()
+
+
+def _decimal_from_limbs(vals: np.ndarray, mask, precision: int,
+                        scale: int):
+    """(n, 2) [lo, hi] limbs -> Decimal128Array."""
+    import pyarrow as pa
+
+    n = len(vals)
+    data = pa.py_buffer(np.ascontiguousarray(vals, dtype=np.int64).tobytes())
+    validity = pa.array(~mask).buffers()[1] if mask is not None else None
+    return pa.Array.from_buffers(
+        pa.decimal128(precision, scale), n, [validity, data]
+    )
+
+
 def _decimal_from_unscaled_i64(vals: np.ndarray, mask, precision: int,
                                scale: int):
     """Inverse of _decimal_unscaled_i64: i64 unscaled -> Decimal128Array."""
@@ -457,11 +489,8 @@ def _decimal_from_unscaled_i64(vals: np.ndarray, mask, precision: int,
 
 def empty_batch(schema: Schema, device: torch.device) -> ColumnBatch:
     cap = get_config().shape_buckets[0]
-    cols = [
-        Column(f.dtype, torch.zeros(cap, dtype=torch_dtype(f.dtype),
-                                    device=device))
-        for f in schema
-    ]
+    cols = [Column(f.dtype, zero_values(f.dtype, cap, device))
+            for f in schema]
     return ColumnBatch(schema, cols, 0)
 
 

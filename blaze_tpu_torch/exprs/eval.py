@@ -23,8 +23,15 @@ spells the result out, because torch on CUDA leaves it undefined:
 Every literal takes its dtype from the IR (`infer_dtype`), never from
 torch's defaults. A node with a string input, and a cast to a string,
 never reach this evaluator: ops/host_lower.py evaluates them on the host
-first (exprs/host_eval.py). Wide decimals raise NotImplementedError
-naming the ROADMAP item that brings them.
+first (exprs/host_eval.py).
+
+A decimal(>18) value is a (capacity, 2) int64 [lo, hi] limb pair, as
+in the JAX package: wide literals, casts with a wide side, the
+two-limb comparison and +, - and * run on those limbs through
+exprs/int128.py (128-bit exact, a result beyond decimal(38) NULL,
+HALF_UP on a product's rescale); `/` goes to float64. Which wide nodes
+an operator admits is the JAX package's routing gate
+(`typing.expr_computes_wide_decimal`), checked at construction.
 
 Every operation here is an eager torch op with no host sync, so a
 batch's whole evaluation can be captured in a CUDA graph (ops/fused.py).
@@ -41,6 +48,7 @@ import torch
 
 from blaze_tpu_torch.batch import torch_dtype
 from blaze_tpu_torch.types import DataType, Schema, TypeId
+from blaze_tpu_torch.exprs import int128 as i128
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.ir import Op
 from blaze_tpu_torch.exprs.typing import infer_dtype, promote
@@ -48,7 +56,6 @@ from blaze_tpu_torch.exprs.typing import infer_dtype, promote
 CV = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (values, validity|None)
 
 _ROADMAP_EXPRS = "ROADMAP 'Modules to port': expressions and types"
-_ROADMAP_DECIMAL = "ROADMAP 'Modules to port' item 3 (decimal128)"
 
 
 def and_validity(a: Optional[torch.Tensor],
@@ -144,9 +151,15 @@ class DeviceEvaluator:
                 f"{e.dtype} literals are lowered on the host "
                 "(ops/host_lower.py) before device evaluation")
         if e.dtype is not None and e.dtype.is_wide_decimal:
-            raise NotImplementedError(
-                f"{e.dtype} literals wait for {_ROADMAP_DECIMAL}"
-            )
+            # a wide literal is a limb pair like any wide column
+            lo, hi = i128.python_limbs(0 if e.value is None
+                                       else int(e.value))
+            v = torch.empty((self.capacity, 2), dtype=torch.int64,
+                            device=self.device)
+            v[:, 0] = lo
+            v[:, 1] = hi
+            return v, (self._full(False, torch.bool) if e.value is None
+                       else None)
         if e.value is None:
             # zeros carry the literal's PHYSICAL dtype (see the JAX
             # evaluator: a NULL int32 literal must not narrow to int8)
@@ -165,10 +178,8 @@ class DeviceEvaluator:
                 raise NotImplementedError(
                     f"cast {src} -> {dst} is lowered on the host "
                     "(ops/host_lower.py) before device evaluation")
-            if t.is_wide_decimal:
-                raise NotImplementedError(
-                    f"cast {src} -> {dst} waits for {_ROADMAP_DECIMAL}"
-                )
+        if src.is_wide_decimal or dst.is_wide_decimal:
+            return _cast_wide(v, m, src, dst)
         if src.id is TypeId.DECIMAL and dst.id is TypeId.DECIMAL:
             # rescale unscaled i64 by 10^(dst.scale - src.scale)
             dscale = dst.scale - src.scale
@@ -231,9 +242,7 @@ class DeviceEvaluator:
 
     def _compare(self, op, lv, rv, lt, rt, m) -> CV:
         if lt.is_wide_decimal or rt.is_wide_decimal:
-            raise NotImplementedError(
-                f"decimal(>18) comparison waits for {_ROADMAP_DECIMAL}"
-            )
+            return _compare_wide(op, lv, rv, lt, rt), m
         ct = promote(lt, rt) if lt != rt else lt
         phys = torch_dtype(ct)
         lv = lv.to(phys)
@@ -278,14 +287,11 @@ class DeviceEvaluator:
 
     def _decimal_arith(self, op, lv, rv, lt, rt, out_t, m) -> CV:
         """decimal(<=18) arithmetic on unscaled int64; a float operand
-        (or DIV) takes the float64 path, as in the JAX evaluator."""
-        if lt.is_wide_decimal or rt.is_wide_decimal or \
-                out_t.is_wide_decimal:
-            raise NotImplementedError(
-                f"decimal(>18) arithmetic waits for {_ROADMAP_DECIMAL}"
-            )
-
+        (or DIV) takes the float64 path, as in the JAX evaluator; a wide
+        operand or result takes `_decimal_arith_wide`."""
         def unscaled(v, t):
+            if t.is_wide_decimal:
+                return v, t.scale  # (cap, 2) limb pair
             if t.id is TypeId.DECIMAL:
                 return v.to(torch.int64), t.scale
             if t.is_integer:
@@ -296,7 +302,9 @@ class DeviceEvaluator:
         ru, rs = unscaled(rv, rt)
         if ls is None or rs is None or op is Op.DIV:
             def to_f(v, t):
-                return v.to(torch.float64) / (
+                f = i128.to_float64(v[:, 0], v[:, 1]) \
+                    if t.is_wide_decimal else v.to(torch.float64)
+                return f / (
                     10.0 ** t.scale if t.id is TypeId.DECIMAL else 1.0
                 )
 
@@ -311,6 +319,10 @@ class DeviceEvaluator:
             if op is Op.MUL:
                 return lf * rf, m
             raise NotImplementedError(f"decimal {op}")
+        if lt.is_wide_decimal or rt.is_wide_decimal or \
+                out_t.is_wide_decimal:
+            return _decimal_arith_wide(op, lu, ru, lt, rt, ls, rs, out_t,
+                                       m)
         target = out_t.scale
         if op in (Op.ADD, Op.SUB):
             lu = lu * (10 ** (target - ls))
@@ -551,6 +563,128 @@ class DeviceEvaluator:
 # ---------------------------------------------------------------------------
 # integer semantics spelled out (see the module docstring)
 # ---------------------------------------------------------------------------
+
+def _compare_wide(op, lv, rv, lt: DataType, rt: DataType) -> torch.Tensor:
+    """decimal(>18) comparisons: the two-limb lexicographic compare,
+    signed high limb then unsigned low limb (the JAX evaluator's
+    `_compare_wide`). Same-scale operands only: the routing gate sends
+    other comparisons to the host tier. A narrow side sign-extends."""
+    if (lt.id is TypeId.DECIMAL and rt.id is TypeId.DECIMAL
+            and lt.scale != rt.scale):
+        raise NotImplementedError("wide decimal comparison needs equal "
+                                  "scales")
+    llo, lhi = i128.limbs_of(lv)
+    rlo, rhi = i128.limbs_of(rv)
+    eq = (lhi == rhi) & (llo == rlo)
+    lt_ = (lhi < rhi) | ((lhi == rhi) & i128.ult(llo, rlo))
+    return {
+        Op.EQ: lambda: eq,
+        Op.NEQ: lambda: ~eq,
+        Op.LT: lambda: lt_,
+        Op.LTE: lambda: lt_ | eq,
+        Op.GT: lambda: ~(lt_ | eq),
+        Op.GTE: lambda: ~lt_,
+    }[op]()
+
+
+def _magnitude(v: torch.Tensor, t: DataType):
+    """sign+magnitude of a limb pair or a narrow unscaled value."""
+    if t.is_wide_decimal:
+        return i128.from_limbs(v[:, 0], v[:, 1])
+    return i128.from_narrow(v)
+
+
+def _stack_limbs(mlo, mhi, neg) -> torch.Tensor:
+    lo, hi = i128.to_limbs(mlo, mhi, neg)
+    return torch.stack([lo, hi], dim=1)
+
+
+def _decimal_arith_wide(op, lu, ru, lt, rt, ls, rs, out_t, m) -> CV:
+    """128-bit decimal +, - and * (exprs/int128.py; the JAX evaluator's
+    `_decimal_arith_wide`): limb-pair or narrow operands enter as
+    sign+magnitude, rescale to the result scale and combine; a result
+    beyond decimal(38) is NULL (Spark non-ANSI); a product's rescale
+    down rounds HALF_UP."""
+    a = _magnitude(lu, lt)
+    b = _magnitude(ru, rt)
+    target = out_t.scale
+    if op in (Op.ADD, Op.SUB):
+        alo, ahi, o1 = i128.rescale_up(a[0], a[1], target - ls)
+        blo, bhi, o2 = i128.rescale_up(b[0], b[1], target - rs)
+        bneg = ~b[2] if op is Op.SUB else b[2]
+        mlo, mhi, neg, ok = i128.signed_add((alo, ahi, a[2]),
+                                            (blo, bhi, bneg))
+        ok = ok & ~o1 & ~o2
+    elif op is Op.MUL:
+        down = ls + rs - target
+        assert down >= 0, (ls, rs, target)
+        mlo, mhi, neg, ok = i128.signed_mul(a, b, down)
+    else:
+        raise NotImplementedError(f"wide decimal {op}")
+    # a wide operand always promotes to a wide result (DIV took the
+    # float64 path)
+    assert out_t.is_wide_decimal, out_t
+    return _stack_limbs(mlo, mhi, neg), and_validity(m, ok)
+
+
+def _div_pow10_trunc(mlo, mhi, k: int):
+    """u128 magnitude // 10^k, truncated."""
+    while k > 0:
+        step = min(9, k)
+        mlo, mhi, _ = i128._mag_divmod_u32(mlo, mhi, 10**step)
+        k -= step
+    return mlo, mhi
+
+
+def _cast_wide(v, m, src: DataType, dst: DataType) -> CV:
+    """Casts with a decimal(>18) side, 128-bit exact. Decimal to
+    decimal rescales up (a value past decimal(38) is NULL) or down,
+    truncating toward zero as the narrow cast does; an integer enters
+    exactly; a float enters as the narrow cast rounds it; a wide value
+    leaves as float64 (`int128.to_float64`), as an integer truncated
+    toward zero and wrapped to the target's width, or as a bool (not
+    zero)."""
+    if dst.is_wide_decimal:
+        if src.is_floating:
+            out = v.to(torch.float64) * (10.0 ** dst.scale)
+            v, s_scale = _float_to_int(torch.round(out), torch.int64), \
+                dst.scale
+        elif src.id is TypeId.DECIMAL:
+            s_scale = src.scale
+        elif src.is_integer:
+            s_scale = 0
+        else:
+            raise NotImplementedError(f"cast {src} -> {dst}")
+        mlo, mhi, neg = _magnitude(v, src if src.id is TypeId.DECIMAL
+                                   else DataType.int64())
+        d = dst.scale - s_scale
+        if d >= 0:
+            mlo, mhi, ovf = i128.rescale_up(mlo, mhi, d)
+            m = and_validity(m, ~(ovf | i128.exceeds_dec38(mlo, mhi)))
+        else:
+            mlo, mhi = _div_pow10_trunc(mlo, mhi, -d)
+        return _stack_limbs(mlo, mhi,
+                            neg & ~((mlo == 0) & (mhi == 0))), m
+    # a wide source, a narrow target
+    if dst.id is TypeId.DECIMAL:
+        mlo, mhi, neg = _magnitude(v, src)
+        d = dst.scale - src.scale
+        if d >= 0:
+            mlo, mhi, _ = i128.rescale_up(mlo, mhi, d)
+        else:
+            mlo, mhi = _div_pow10_trunc(mlo, mhi, -d)
+        return torch.where(neg, -mlo, mlo), m  # the low 64 bits
+    if dst.is_floating:
+        f = i128.to_float64(v[:, 0], v[:, 1]) / (10.0 ** src.scale)
+        return f.to(torch_dtype(dst)), m
+    if dst.id is TypeId.BOOL:
+        return (v[:, 0] != 0) | (v[:, 1] != 0), m
+    if dst.is_integer:
+        mlo, mhi, neg = _magnitude(v, src)
+        mlo, _ = _div_pow10_trunc(mlo, mhi, src.scale)
+        return torch.where(neg, -mlo, mlo).to(torch_dtype(dst)), m
+    raise NotImplementedError(f"cast {src} -> {dst}")
+
 
 def _java_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Integer division truncating toward zero (lax.div); MIN / -1

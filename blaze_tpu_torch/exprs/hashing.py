@@ -53,9 +53,6 @@ _M32 = 0xFFFFFFFF
 F32_NAN_BITS = 0x7FC00000
 F64_NAN_BITS = 0x7FF8000000000000
 
-_ROADMAP_DECIMAL = ("ROADMAP 'Modules to port' item 3 (decimal128 "
-                    "limbs)")
-
 _INT_WORD = (TypeId.BOOL, TypeId.INT8, TypeId.INT16, TypeId.INT32,
              TypeId.DATE32)
 _LONG_WORD = (TypeId.INT64, TypeId.TIMESTAMP_US, TypeId.DECIMAL)
@@ -77,8 +74,10 @@ def check_hashable(dtype: DataType) -> None:
             f"murmur3 of {dtype} keys runs on the host (hash_rows_host), "
             "not on the device")
     if dtype.is_wide_decimal:
+        # the JAX package hashes no decimal(>18) key, on the device
+        # (device_hash_supported) or the host (the shuffle's host hash)
         raise NotImplementedError(
-            f"murmur3 of {dtype} keys waits for {_ROADMAP_DECIMAL}")
+            f"hash of {dtype}: decimal(>18) keys are not hashed")
     if not device_hash_supported(dtype):
         raise NotImplementedError(f"murmur3 of {dtype} keys")
 

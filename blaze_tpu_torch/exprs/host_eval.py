@@ -14,6 +14,14 @@ of the UTF-8 bytes, chained with the other arguments,
 exprs/hashing.hash_arrays_host) and `to_date` of a string (ISO
 yyyy-mm-dd, NULL where it does not parse, as Spark's cast gives), which
 the JAX package's evaluators do not have.
+
+`upper`, `lower`, `trim`, `ltrim` and `rtrim` follow Spark where the
+JAX package follows pyarrow: Spark's UTF8String maps ASCII text itself
+and other text through Java's String.toUpperCase / toLowerCase, whose
+full case mapping gives upper('ß') = 'SS', upper('ﬁ') = 'FI' and a
+final sigma in lower('ΑΣ') = 'ας' (Python's str.upper and str.lower
+apply the same Unicode SpecialCasing rules); its trims strip U+0020
+only, where pyarrow strips all whitespace.
 """
 
 from __future__ import annotations
@@ -142,16 +150,14 @@ class HostEvaluator:
     def _scalar_fn(self, e: ir.ScalarFn) -> pa.Array:
         n = e.name
         args = [self.evaluate(a) for a in e.args]
-        if n == "lower":
-            return pc.utf8_lower(args[0])
-        if n == "upper":
-            return pc.utf8_upper(args[0])
+        if n in ("lower", "upper"):
+            return _spark_case(args[0], n == "upper")
         if n == "trim":
-            return pc.utf8_trim_whitespace(args[0])
+            return pc.utf8_trim(args[0], characters=" ")
         if n == "ltrim":
-            return pc.utf8_ltrim_whitespace(args[0])
+            return pc.utf8_ltrim(args[0], characters=" ")
         if n == "rtrim":
-            return pc.utf8_rtrim_whitespace(args[0])
+            return pc.utf8_rtrim(args[0], characters=" ")
         if n in ("length", "char_length"):
             return pc.cast(pc.utf8_length(args[0]), pa.int32())
         if n == "reverse":
@@ -221,6 +227,21 @@ class HostEvaluator:
             ]
             return pa.array(out, type=pa.utf8())
         raise NotImplementedError(f"host scalar fn {n}")
+
+
+def _spark_case(arr: pa.Array, upper: bool) -> pa.Array:
+    """Spark's UTF8String.toUpperCase / toLowerCase: ASCII text maps
+    byte by byte; other text takes Java's full case mapping, which
+    Python's str.upper / str.lower share (one result a string)."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    ascii_fn = pc.ascii_upper if upper else pc.ascii_lower
+    if len(arr) == 0 or pc.all(pc.string_is_ascii(arr)).as_py() in (
+            True, None):
+        return ascii_fn(arr)
+    conv = str.upper if upper else str.lower
+    return pa.array([None if v is None else conv(v)
+                     for v in arr.to_pylist()], type=arr.type)
 
 
 def _pat(e: ir.Expr) -> str:

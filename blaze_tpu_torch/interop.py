@@ -18,8 +18,8 @@ import torch
 from blaze_tpu_torch.batch import (
     Column,
     ColumnBatch,
-    check_fixed_width,
     torch_dtype,
+    value_shape,
 )
 from blaze_tpu_torch.types import Schema
 
@@ -35,15 +35,18 @@ def batch_from_numpy(schema: Schema,
     """Port ColumnBatch from padded host buffers: `values[i]` and
     `validity[i]` (bool or None) have the batch capacity as length; a
     string column's values are its int32 codes into `dictionaries[i]`
-    (a pyarrow array)."""
+    (a pyarrow array); a decimal(>18) column's are (capacity, 2) int64
+    [lo, hi] limbs, as the JAX package holds them."""
     device = torch.device(device)
     cols: List[Column] = []
     caps = set()
     if dictionaries is None:
         dictionaries = [None] * len(values)
     for field, v, m, d in zip(schema, values, validity, dictionaries):
-        check_fixed_width(field.dtype)
         v = np.ascontiguousarray(v, dtype=field.dtype.physical_dtype())
+        if v.shape[1:] != value_shape(field.dtype, len(v))[1:]:
+            raise ValueError(f"{field.name}: values of shape {v.shape} "
+                             f"for {field.dtype}")
         caps.add(len(v))
         t = torch.from_numpy(v.copy()).to(device)
         assert t.dtype == torch_dtype(field.dtype)

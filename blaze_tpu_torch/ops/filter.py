@@ -28,9 +28,9 @@ class FilterExec(PhysicalOp):
         self.children = [child]
         self.predicate = bind_opt(predicate, child.schema)
         if expr_computes_wide_decimal(self.predicate, child.schema):
+            # the JAX package's routing gate and words
             raise NotImplementedError(
-                "predicates on decimal(>18) wait for ROADMAP "
-                "'Modules to port' item 3 (decimal128)"
+                "predicates on decimal(>18) are host-tier work"
             )
         self.host = needs_host(self.predicate, child.schema)
 

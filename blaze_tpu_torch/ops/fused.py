@@ -95,7 +95,7 @@ def _graph_batch(cb: ColumnBatch) -> bool:
 def _static_input(cb: PackedColumnBatch):
     """A copy of a packed batch's buffer and its columns as views of
     it: a graph's input, refilled for each batch."""
-    lay = Layout([(t.dtype, t.numel()) for c in cb.columns
+    lay = Layout([(t.dtype, t.shape) for c in cb.columns
                   for t in (c.values, c.validity) if t is not None])
     if lay.nbytes != cb.buf.numel():
         raise ValueError("a packed batch's columns do not match its buffer")
@@ -224,7 +224,7 @@ class FusedPipelineExec(PhysicalOp):
 
         def prepare(warm):
             lay = out["layout"] = Layout(
-                [(t.dtype, cap) for t in _flat(*warm)], header=0)
+                [(t.dtype, t.shape) for t in _flat(*warm)], header=0)
             out["buf"] = torch.empty(lay.nbytes, dtype=torch.uint8,
                                      device=dev)
             out["views"] = lay.views(out["buf"])
@@ -240,20 +240,26 @@ class FusedPipelineExec(PhysicalOp):
 # keyless aggregate with a streaming carry
 # ---------------------------------------------------------------------------
 
-def keyless_merge_plan(aggs) -> Optional[List[str]]:
+def keyless_merge_plan(aggs, in_schema: Schema) -> Optional[List[str]]:
     """Per state column, how the keyless carry merges a batch's partial
     state (the JAX package's `_keyless_merge_plan`): "add" for counts,
-    sums and moments, "min"/"max" for extremes; None for FIRST/LAST,
-    whose states cannot tell "no row yet" from a first NULL."""
+    sums, moments and decimal chunk sums, "min"/"max" for extremes;
+    None for FIRST/LAST, whose states cannot tell "no row yet" from a
+    first NULL. `aggs` are a PARTIAL or COMPLETE aggregate's, over
+    `in_schema`."""
+    from blaze_tpu_torch.ops.hash_aggregate import (
+        AggMode,
+        _state_width,
+        dsum_scale,
+    )
+
     plan: List[str] = []
     for a, _ in aggs:
-        if a.fn in (AggFn.COUNT, AggFn.COUNT_STAR, AggFn.SUM):
-            plan.append("add")
-        elif a.fn is AggFn.AVG:
-            plan += ["add", "add"]
-        elif a.fn in (AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
-                      AggFn.STDDEV_POP):
-            plan += ["add"] * 3
+        if a.fn in (AggFn.COUNT, AggFn.COUNT_STAR, AggFn.SUM, AggFn.AVG,
+                    AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
+                    AggFn.STDDEV_POP):
+            chunked = dsum_scale(a, in_schema, AggMode.PARTIAL) is not None
+            plan += ["add"] * _state_width(a.fn, chunked)
         elif a.fn is AggFn.MIN:
             plan.append("min")
         elif a.fn is AggFn.MAX:
@@ -331,7 +337,7 @@ class FusedAggregateExec(PhysicalOp):
         if agg.keys or agg.mode is not AggMode.PARTIAL:
             raise ValueError("FusedAggregateExec takes a keyless PARTIAL "
                              "aggregate")
-        plan = keyless_merge_plan(agg.aggs)
+        plan = keyless_merge_plan(agg.aggs, agg.children[0].schema)
         if plan is None:
             raise ValueError("FIRST/LAST states do not merge in a carry")
         self.children = [pipeline.children[0]]
@@ -516,10 +522,12 @@ class FusedWindowAggExec(PhysicalOp):
 class HostFinalAggExec(PhysicalOp):
     """Finalizes the keyless carry's state row on the host: the other
     half of the COMPLETE rewrite (the JAX package's HostFinalAggExec,
-    its one-batch `_finalize_host`). AVG divides, the variance family
-    finishes its moments; the result row stays on the host, where the
-    task boundary reads it. An empty stream gives the global row of an
-    empty input (COUNT 0, the rest NULL)."""
+    its one-batch `_finalize_host` and `_finalize_agg` with `n_live`).
+    AVG divides, the variance family finishes its moments, a decimal
+    SUM/AVG reassembles its chunk sums in Python ints, once per stream;
+    the result row stays on the host, where the task boundary reads it.
+    An empty stream gives the global row of an empty input (COUNT 0,
+    the rest NULL)."""
 
     def __init__(self, child: PhysicalOp, template):
         # template: the original COMPLETE HashAggregateExec
@@ -545,17 +553,29 @@ class HostFinalAggExec(PhysicalOp):
     def _finalize(self, cb: ColumnBatch) -> ColumnBatch:
         from blaze_tpu_torch.ops.hash_aggregate import (
             _finalize_var,
+            _reassemble_decimal,
             _state_width,
+            parse_dsum_scale,
         )
 
         states = [(c.values, c.validity) for c in cb.columns]
+        fields = self.children[0].schema.fields
         out: List[Column] = []
         pos = 0
         for (a, _), field in zip(self.template.aggs, self._schema.fields):
-            w = _state_width(a.fn)
+            dscale = parse_dsum_scale(fields[pos].name)
+            w = _state_width(a.fn, dscale is not None)
             st = states[pos: pos + w]
             pos += w
-            if a.fn is AggFn.AVG:
+            if dscale is not None:
+                avg = a.fn is AggFn.AVG
+                limbs, mask = _reassemble_decimal(
+                    [x.cpu().numpy() for x, _ in st[:4]],
+                    st[0][1].cpu().numpy(),
+                    st[4][0].cpu().numpy() if avg else None, dscale, avg,
+                    n_live=cb.num_rows)
+                v, m = torch.from_numpy(limbs), torch.from_numpy(mask)
+            elif a.fn is AggFn.AVG:
                 (s, sm), (c, _) = st
                 v = s.to(torch.float64) / c.clamp(min=1).to(torch.float64)
                 m = (c > 0) if sm is None else sm & (c > 0)

@@ -11,8 +11,18 @@ on one duplicate-free dictionary (a batch's own; `concat_batches`
 unifies the batches it joins, so FINAL merges PARTIAL states across
 batches and tasks). COUNT, FIRST and LAST take string arguments, as
 the JAX package allows; the key and FIRST/LAST outputs keep their
-dictionaries. MIN/MAX over strings raise, as in the JAX package; decimal
-SUM/AVG (chunked 128-bit states) raise naming item 3's rest.
+dictionaries. MIN/MAX over strings raise, as in the JAX package.
+
+Decimal SUM and AVG (any precision) keep the JAX package's chunked
+128-bit state (`_decimal_chunks`): four int64 columns of 32-bit chunk
+sums, `{name}#dsum{scale}_c{k}`, which never overflow, summed by the
+same kernels as any int64 sum (K1 keyless, K3 keyed); a COMPLETE or
+FINAL output reassembles them exactly on the host, once a batch of
+groups, in Python ints (`_reassemble_decimal`): decimal(38, s) for SUM,
+NULL past decimal(38) (Spark non-ANSI), AVG at scale s+4 rounded
+HALF_UP. COUNT, FIRST and LAST of a decimal(>18) pass its limb pairs
+through; MIN, MAX and the moments of one, and decimal(>18) group keys,
+are refused with the JAX package's words.
 
 Keyless: one group, so every state is a masked reduction. Kernel K1
 (ops/kernels/stats.py) gives a column's sum, min, max and non-null count
@@ -45,11 +55,18 @@ import enum
 import itertools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from blaze_tpu_torch.config import get_config
 from blaze_tpu_torch.types import DataType, Field, Schema, TypeId
-from blaze_tpu_torch.batch import Column, ColumnBatch, torch_dtype
+from blaze_tpu_torch.batch import (
+    Column,
+    ColumnBatch,
+    _h2d,
+    torch_dtype,
+    zero_values,
+)
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.optimize import bind_opt
 from blaze_tpu_torch.exprs.ir import AggExpr, AggFn
@@ -78,8 +95,6 @@ from blaze_tpu_torch.runtime.memory import (
     get_device_tracker,
 )
 
-_ROADMAP_DECIMAL = ("ROADMAP 'Modules to port' item 3 (decimal SUM/AVG "
-                    "states, with decimal128)")
 _STRING_ARG_FNS = (AggFn.COUNT, AggFn.FIRST, AggFn.LAST)
 _VARIANCE = (AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
              AggFn.STDDEV_POP)
@@ -124,6 +139,15 @@ def _state_fields(agg: AggExpr, name: str, in_schema: Schema) -> List[Field]:
     if fn in (AggFn.COUNT, AggFn.COUNT_STAR):
         return [Field(f"{name}#count", DataType.int64(), False)]
     ct = infer_dtype(agg.child, in_schema)
+    if fn in (AggFn.SUM, AggFn.AVG) and ct.id is TypeId.DECIMAL:
+        # the chunked 128-bit-exact sum state; the scale rides in the
+        # field name, so a FINAL side that sees only the partial schema
+        # (across a shuffle) finalizes exactly
+        fields = [Field(f"{name}#dsum{ct.scale}_c{k}", DataType.int64(),
+                        k == 0) for k in range(4)]
+        if fn is AggFn.AVG:
+            fields.append(Field(f"{name}#count", DataType.int64(), False))
+        return fields
     if fn is AggFn.SUM:
         return [Field(f"{name}#sum", _sum_type(ct), True)]
     if fn in (AggFn.MIN, AggFn.MAX, AggFn.FIRST, AggFn.LAST):
@@ -141,10 +165,95 @@ def _state_fields(agg: AggExpr, name: str, in_schema: Schema) -> List[Field]:
     ]
 
 
-def _state_width(fn: AggFn) -> int:
+def _state_width(fn: AggFn, chunked: bool = False) -> int:
+    """State columns of one aggregate; `chunked` for a decimal SUM/AVG
+    (its first state field carries the #dsum marker)."""
+    if fn is AggFn.SUM:
+        return 4 if chunked else 1
     if fn is AggFn.AVG:
-        return 2
+        return 5 if chunked else 2
     return 3 if fn in _VARIANCE else 1
+
+
+def parse_dsum_scale(field_name: str) -> Optional[int]:
+    """The scale in a chunked decimal state field's name, or None (the
+    JAX package's `_parse_dsum_scale`)."""
+    marker = "#dsum"
+    i = field_name.find(marker)
+    if i < 0:
+        return None
+    rest = field_name[i + len(marker):]
+    j = rest.find("_c")
+    if j <= 0:
+        return None
+    try:
+        return int(rest[:j])
+    except ValueError:
+        return None
+
+
+def dsum_scale(a: AggExpr, in_schema: Schema, mode: AggMode
+               ) -> Optional[int]:
+    """The input scale of a decimal SUM/AVG (chunked state), else
+    None; FINAL reads it from the state field's name."""
+    if a.fn not in (AggFn.SUM, AggFn.AVG):
+        return None
+    if mode is AggMode.FINAL:
+        return parse_dsum_scale(in_schema.fields[a.child.index].name)
+    ct = infer_dtype(a.child, in_schema)
+    return ct.scale if ct.id is TypeId.DECIMAL else None
+
+
+def _decimal_chunks(cv: torch.Tensor) -> List[torch.Tensor]:
+    """Decimal unscaled values as four int64 columns of 32-bit chunks,
+    value = sum(c_k * 2^(32k)), c3 carrying the sign, so chunk sums
+    never overflow int64: a narrow value is its int64, a wide one its
+    (cap, 2) [lo, hi] limbs (the JAX package's `_decimal_chunks`)."""
+    if cv.dim() == 1:
+        v = cv.to(torch.int64)
+        z = torch.zeros_like(v)
+        return [v & 0xFFFFFFFF, v >> 32, z, z]  # >> carries the sign
+    lo, hi = cv[:, 0], cv[:, 1]
+    return [lo & 0xFFFFFFFF, (lo >> 32) & 0xFFFFFFFF, hi & 0xFFFFFFFF,
+            hi >> 32]
+
+
+_DEC38_MAX = 10**38 - 1
+_U64 = (1 << 64) - 1
+
+
+def _reassemble_decimal(chunk_cols: List[np.ndarray],
+                        any_v: Optional[np.ndarray],
+                        count: Optional[np.ndarray], scale: int, avg: bool,
+                        n_live: Optional[int] = None):
+    """Host-exact reassembly of chunked decimal sums -> (limbs, mask)
+    (the JAX package's `_reassemble_decimal`): a SUM past decimal(38)
+    is NULL (Spark non-ANSI); AVG divides at scale+4 with HALF_UP in
+    Python ints. The bigint work covers the first `n_live` rows; the
+    rest stay zero."""
+    cap = len(chunk_cols[0])
+    n = cap if n_live is None else min(n_live, cap)
+    total = (chunk_cols[0][:n].astype(object)
+             + (chunk_cols[1][:n].astype(object) << 32)
+             + (chunk_cols[2][:n].astype(object) << 64)
+             + (chunk_cols[3][:n].astype(object) << 96))
+    if avg:
+        mul = 10 ** (min(scale + 4, 38) - scale)
+        safe = np.maximum(count[:n], 1).astype(object)
+        num = total * mul
+        q = num // safe
+        r = num - q * safe
+        half_up = np.where(num >= 0, 2 * r >= safe, 2 * r > safe)
+        total = q + half_up.astype(object)
+    overflow = np.abs(total) > _DEC38_MAX
+    mask = np.zeros(cap, dtype=bool)
+    mask[:n] = (any_v[:n] if any_v is not None else True) & ~overflow
+    t_mod = np.mod(np.where(overflow, 0, total), 1 << 128)
+    limbs = np.zeros((cap, 2), dtype=np.int64)
+    for j, part in enumerate((t_mod & _U64, t_mod >> 64)):
+        limbs[:n, j] = np.where(part >= (1 << 63), part - (1 << 64),
+                                part).astype(np.int64)
+    return limbs, mask
 
 
 def _result_type(a: AggExpr, in_schema: Schema, mode: AggMode) -> DataType:
@@ -152,22 +261,32 @@ def _result_type(a: AggExpr, in_schema: Schema, mode: AggMode) -> DataType:
         # child is a BoundCol at the first state column (see __init__)
         if a.fn in (AggFn.COUNT, AggFn.COUNT_STAR):
             return DataType.int64()
+        dscale = dsum_scale(a, in_schema, mode)
+        if dscale is not None:
+            return DataType.decimal(
+                38, min(dscale + 4, 38) if a.fn is AggFn.AVG else dscale)
         if a.fn is AggFn.AVG or a.fn in _VARIANCE:
             return DataType.float64()
         return a.child.dtype
     return infer_dtype(a, in_schema)
 
 
-def _check_input_type(what: str, dt: DataType, fn=None) -> None:
-    if dt.is_string_like and fn is not None and fn not in _STRING_ARG_FNS:
+def _check_input_type(dt: DataType, fn: AggFn) -> None:
+    if dt.is_string_like and fn not in _STRING_ARG_FNS:
         # the JAX package refuses them too
         # (blaze_tpu/ops/hash_aggregate.py:417-422)
         raise NotImplementedError(
-            f"{what} over {dt}: MIN/MAX/SUM/AVG over strings are "
+            f"{fn.value} over {dt}: MIN/MAX/SUM/AVG over strings are "
             "host-tier work in the JAX package and the port alike")
-    if dt.is_wide_decimal:
-        raise NotImplementedError(f"{what} over {dt} waits for "
-                                  f"{_ROADMAP_DECIMAL}")
+    if dt.is_wide_decimal and fn not in _WIDE_ARG_FNS:
+        # 128-bit ordering and moments need host math: the JAX
+        # package's refusal and words (hash_aggregate.py:423-435)
+        raise NotImplementedError(
+            f"{fn.value} over decimal(>18) is host-tier work")
+
+
+_WIDE_ARG_FNS = (AggFn.SUM, AggFn.AVG, AggFn.COUNT, AggFn.FIRST,
+                 AggFn.LAST)
 
 
 class _Reductions:
@@ -182,6 +301,9 @@ class _Reductions:
         self._counts: List[Tuple[torch.Tensor, torch.Tensor]] = []
         self._masks: List[Tuple[torch.Tensor, torch.Tensor,
                                 torch.Tensor]] = []
+        # decimal chunk columns by argument expression: SUM and AVG of
+        # one argument share them, and so their reductions
+        self.chunks: dict = {}
 
     def contrib(self, live: torch.Tensor,
                 valid: Optional[torch.Tensor]) -> torch.Tensor:
@@ -250,6 +372,7 @@ class _SegOps(_Reductions):
         self.gid = gid
         self.domain = domain
         self.compact_slots = compact_slots
+        self._sums: List[tuple] = []
 
     def _count(self, mask):
         # a bool column sums to its count of true rows, in int64
@@ -257,9 +380,16 @@ class _SegOps(_Reductions):
                                      at=self.compact_slots)
 
     def sum(self, v, contrib):
-        # sums accumulate in the state type, float64 or int64
-        return segreduce.segment_sum(self.gid, v, self.domain, contrib,
-                                     self.compact_slots)
+        # sums accumulate in the state type, float64 or int64; one
+        # launch serves every sum of the same column and mask (a
+        # decimal SUM and AVG share their chunk columns)
+        for pv, pc, s in self._sums:
+            if pv is v and pc is contrib:
+                return s
+        s = segreduce.segment_sum(self.gid, v, self.domain, contrib,
+                                  self.compact_slots)
+        self._sums.append((v, contrib, s))
+        return s
 
     def extreme(self, is_min: bool, v, contrib):
         red = segreduce.segment_min if is_min else segreduce.segment_max
@@ -283,7 +413,10 @@ class HashAggregateExec(PhysicalOp):
         key_fields = [Field(n, infer_dtype(e, in_schema), True)
                       for e, n in self.keys]
         for f in key_fields:
-            _check_input_type("group key", f.dtype)
+            if f.dtype.is_wide_decimal:
+                # the JAX package's refusal and words
+                raise NotImplementedError(
+                    "group keys of decimal(>18) are host-tier work")
         if mode is AggMode.FINAL:
             # states are located positionally in the partial output, keys
             # first, then states in agg order
@@ -293,13 +426,12 @@ class HashAggregateExec(PhysicalOp):
             pos = len(self.keys)
             for a, n in aggs:
                 first_state = in_schema.fields[pos]
-                if "#dsum" in first_state.name:
-                    raise NotImplementedError(
-                        f"decimal SUM/AVG states wait for {_ROADMAP_DECIMAL}")
+                width = _state_width(
+                    a.fn, parse_dsum_scale(first_state.name) is not None)
                 self.aggs.append(
                     (AggExpr(a.fn, ir.BoundCol(pos, first_state.dtype)), n))
-                self._final_widths.append(_state_width(a.fn))
-                pos += _state_width(a.fn)
+                self._final_widths.append(width)
+                pos += width
         else:
             self.aggs = [
                 (AggExpr(a.fn, bind_opt(a.child, in_schema)
@@ -309,13 +441,9 @@ class HashAggregateExec(PhysicalOp):
             for a, _ in self.aggs:
                 if a.child is None:
                     continue
-                ct = infer_dtype(a.child, in_schema)
-                _check_input_type(a.fn.value, ct, a.fn)
-                if ct.id is TypeId.DECIMAL and a.fn in (AggFn.SUM,
-                                                        AggFn.AVG):
-                    raise NotImplementedError(
-                        f"{a.fn.value} over {ct} waits for "
-                        f"{_ROADMAP_DECIMAL}")
+                _check_input_type(infer_dtype(a.child, in_schema), a.fn)
+        self._dscales = [dsum_scale(a, in_schema, mode)
+                         for a, _ in self.aggs]
         self._host = mode is not AggMode.FINAL and any(
             needs_host(e, in_schema) for e in self._lowered_inputs())
         if mode is AggMode.PARTIAL:
@@ -508,21 +636,30 @@ class HashAggregateExec(PhysicalOp):
         else:
             outs, red, n = [], _Scalar(), 1
         dicts = [passthrough_dictionary(e, cb) for e in key_exprs]
+        # per aggregate: (its state or result columns, the input scale
+        # of a decimal SUM/AVG to reassemble or None, is it an AVG)
+        groups = []
         pos = len(self.keys)
         for i, a in enumerate(aggs):
+            dscale = self._dscales[i]
             if self.mode is AggMode.FINAL:
                 width = self._final_widths[i]
-                outs.extend(_merge_states(
-                    a, cols[pos: pos + width], live, red, cb.capacity))
-                dicts += [cb.columns[pos].dictionary] + [None] * (width - 1)
+                st = _merge_states(a, cols[pos: pos + width], live, red,
+                                   cb.capacity, dscale is not None)
+                d = cb.columns[pos].dictionary
                 pos += width
             else:
                 st = _agg_state(a, ev, live, red, cb.capacity, self.mode)
-                outs.extend(st)
                 d = None if a.child is None \
                     or a.fn not in (AggFn.FIRST, AggFn.LAST) \
                     else passthrough_dictionary(a.child, cb)
-                dicts += [d] + [None] * (len(st) - 1)
+            if self.mode is AggMode.PARTIAL:
+                dscale = None  # states leave as they are
+            groups.append((st, dscale, a.fn is AggFn.AVG))
+            dicts += [d] + [None] * (len(st) - 1)
+        if any(g[1] is not None for g in groups):
+            groups = _finish_decimals(groups, n, cb.device)
+        outs += [cv for st, _, _ in groups for cv in st]
         out_cols = [
             Column(f.dtype, v.to(torch_dtype(f.dtype)), m, d)
             for (v, m), f, d in zip(outs, self._schema.fields, dicts)
@@ -587,17 +724,58 @@ def _unique_key_dictionaries(cb: ColumnBatch, key_exprs) -> ColumnBatch:
     return ColumnBatch(cb.schema, cols, cb.num_rows, cb.selection)
 
 
+def _finish_decimals(groups, n: int, device: torch.device):
+    """Each decimal SUM/AVG's chunk states reassembled into its result
+    column (the JAX package's output arm, hash_aggregate.py:742-772):
+    every chunk, validity and count array of the batch crosses in one
+    fetch, the first `n` rows reassemble in Python ints, and the limbs
+    and validity go back to `device`."""
+    from blaze_tpu_torch.runtime.pack import get_packed
+
+    fetch = []
+    for st, dscale, avg in groups:
+        if dscale is not None:
+            fetch += [v for v, _ in st[:4]] + [st[0][1]]
+            if avg:
+                fetch.append(st[4][0])
+    host = iter(get_packed(fetch))
+    out = []
+    for st, dscale, avg in groups:
+        if dscale is None:
+            out.append((st, dscale, avg))
+            continue
+        chunks = [np.asarray(next(host)) for _ in range(4)]
+        any_v = np.asarray(next(host))
+        count = np.asarray(next(host)) if avg else None
+        limbs, mask = _reassemble_decimal(chunks, any_v, count, dscale,
+                                          avg, n_live=n)
+        out.append(([(_h2d(limbs, device), _h2d(mask, device))], None,
+                    avg))
+    return out
+
+
 def _agg_state(a: AggExpr, ev: DeviceEvaluator, live: torch.Tensor,
                red: _Reductions, capacity: int, mode: AggMode):
     """(value, validity) state/result columns for one aggregate over
-    raw input rows."""
+    raw input rows. A decimal SUM/AVG gives its chunk sums (and count),
+    which a COMPLETE output reassembles."""
     fn = a.fn
+    chunked = dsum_scale(a, ev.schema, mode) is not None
     if fn is AggFn.COUNT_STAR:
         return [(red.count(live), None)]
     cv, cm = ev.evaluate(a.child)
     contrib = red.contrib(live, cm)
     if fn is AggFn.COUNT:
         return [(red.count(contrib), None)]
+    if chunked:
+        # four int64 chunk sums: K1 keyless, K3 keyed
+        key = (repr(a.child), id(contrib))
+        if key not in red.chunks:
+            red.chunks[key] = _decimal_chunks(cv)
+        sums = [red.sum(c, contrib) for c in red.chunks[key]]
+        cnt = red.count(contrib)
+        out = [(sums[0], cnt > 0)] + [(c, None) for c in sums[1:]]
+        return out + [(cnt, None)] if fn is AggFn.AVG else out
     if fn in (AggFn.SUM, AggFn.AVG):
         s = red.sum(cv, contrib)
         cnt = red.count(contrib)
@@ -622,11 +800,21 @@ def _agg_state(a: AggExpr, ev: DeviceEvaluator, live: torch.Tensor,
 
 
 def _merge_states(a: AggExpr, states, live: torch.Tensor, red: _Reductions,
-                  capacity: int):
-    """FINAL: merge PARTIAL state columns into the result column."""
+                  capacity: int, chunked: bool = False):
+    """FINAL: merge PARTIAL state columns into the result column; a
+    decimal SUM/AVG (`chunked`) into merged chunk sums (and count),
+    which the output reassembles."""
     fn = a.fn
     v, m = states[0]
     contrib = red.contrib(live, m)
+    if chunked:
+        # an empty state's chunks hold 0, the additive neutral
+        sums = [red.sum(c, live) for c, _ in states[:4]]
+        out = [(sums[0], red.count(contrib) > 0)] + [
+            (c, None) for c in sums[1:]]
+        if fn is AggFn.AVG:
+            out.append((red.sum(states[4][0], live), None))
+        return out
     if fn in (AggFn.COUNT, AggFn.COUNT_STAR):
         return [(red.sum(v, live), None)]
     if fn is AggFn.SUM:
@@ -673,7 +861,7 @@ def _empty_global_row(op: HashAggregateExec,
     cap = get_config().shape_buckets[0]
     cols = []
     for field, (a, _) in zip(op.schema.fields, op.aggs):
-        v = torch.zeros(cap, dtype=torch_dtype(field.dtype), device=device)
+        v = zero_values(field.dtype, cap, device)
         m = None
         if a.fn not in (AggFn.COUNT, AggFn.COUNT_STAR):
             m = torch.zeros(cap, dtype=torch.bool, device=device)

@@ -38,7 +38,9 @@ equals. So the build index is built once per build relation, where the
 JAX package unifies both dictionaries per probe batch and rebuilds the
 index when build codes move (`_unify_key_pair`, `_ensure_index`): the
 same matches. Output columns keep their own codes and dictionaries.
-Decimal(>18) keys raise NotImplementedError naming item 3's rest.
+Decimal(>18) columns ride as payload through every core and the grace
+buckets; decimal(>18) keys raise NotImplementedError with the JAX
+package's words, as it refuses them (blaze_tpu/ops/joins.py:118-120).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from blaze_tpu_torch.batch import Column, ColumnBatch, row_mask, torch_dtype
+from blaze_tpu_torch.batch import Column, ColumnBatch, row_mask, zero_values
 from blaze_tpu_torch.config import get_config, resolve_join_core
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.ops import hash_table as ht
@@ -65,8 +67,6 @@ from blaze_tpu_torch.ops.util import (
 from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.dispatch import host_bool, host_int, host_ints
 from blaze_tpu_torch.types import DataType, Field, Schema
-
-ROADMAP_KEYS = "ROADMAP 'Modules to port' item 3 (decimal128)"
 
 _INT_KEYS = (torch.int8, torch.int16, torch.int32, torch.int64)
 
@@ -109,9 +109,9 @@ def check_key_types(left: Schema, left_keys: Sequence[int], right: Schema,
         lt, rt = left.fields[i].dtype, right.fields[j].dtype
         for dt in (lt, rt):
             if dt.is_wide_decimal:
+                # the JAX package's words (blaze_tpu/ops/joins.py)
                 raise NotImplementedError(
-                    f"join keys of {dt}: decimal128 keys wait for "
-                    f"{ROADMAP_KEYS}")
+                    "join keys of decimal(>18) are host-tier work")
         if lt.is_string_like != rt.is_string_like:
             raise NotImplementedError(
                 f"join keys of {lt} and {rt}: a string key joins a string "
@@ -417,9 +417,7 @@ def _null_side(fields: Sequence[Field], capacity: int,
                device) -> List[Column]:
     """All-NULL columns of the other side, as device zeros."""
     return [
-        Column(f.dtype,
-               torch.zeros(capacity, dtype=torch_dtype(f.dtype),
-                           device=device),
+        Column(f.dtype, zero_values(f.dtype, capacity, device),
                torch.zeros(capacity, dtype=torch.bool, device=device))
         for f in fields
     ]

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterator, List, Optional, Sequence
 
-from blaze_tpu_torch.types import Schema, from_arrow_schema
+from blaze_tpu_torch.types import Schema, TypeId, from_arrow_schema
 from blaze_tpu_torch.batch import ColumnBatch, PackedColumnBatch
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
@@ -203,4 +203,19 @@ def _may_match(pred: ir.Expr, rg, schema: Schema) -> bool:
     if col is None or lit.value is None:
         return True
     name = col.name if isinstance(col, Col) else schema.fields[col.index].name
-    return _minmax_may_match(_rg_stats(name, rg), op, lit.value)
+    return _minmax_may_match(_rg_stats(name, rg), op, _stats_value(lit))
+
+
+def _stats_value(lit) -> object:
+    """A literal as parquet statistics hold its column's values: a
+    decimal literal's unscaled int becomes the Decimal it stands for
+    (decimal statistics are Decimals; compared with the unscaled int,
+    50.00 would read as 5000). The JAX package compares the unscaled
+    int and prunes row groups that match."""
+    if lit.dtype is None or lit.dtype.id is not TypeId.DECIMAL:
+        return lit.value
+    import decimal
+
+    with decimal.localcontext() as ctx:
+        ctx.prec = 80
+        return decimal.Decimal(int(lit.value)).scaleb(-lit.dtype.scale)

@@ -37,9 +37,9 @@ class ProjectExec(PhysicalOp):
         self.exprs = [(bind_opt(e, child.schema), name) for e, name in exprs]
         for e, _ in self.exprs:
             if expr_computes_wide_decimal(e, child.schema):
+                # the JAX package's routing gate and words
                 raise NotImplementedError(
-                    "compute on decimal(>18) waits for ROADMAP "
-                    "'Modules to port' item 3 (decimal128)"
+                    "compute on decimal(>18) is host-tier work"
                 )
         self.host = any(needs_host(e, child.schema) for e, _ in self.exprs)
         self._schema = Schema(

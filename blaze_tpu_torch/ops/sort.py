@@ -24,8 +24,14 @@ sort orders the strings themselves. A key expression with a string input
 is evaluated on the host (ops/host_lower.py).
 
 Task metrics carry `dispatch.sort_route.<in_memory|topk|run_merge|host>`,
-`dispatch.sort_spilled_runs` and `dispatch.host_sorts`. Decimal(>18)
-keys raise NotImplementedError.
+`dispatch.sort_spilled_runs` and `dispatch.host_sorts`.
+
+A decimal(>18) key is its two limbs as adjacent lanes, the high limb
+signed and the low limb with its top bit flipped into signed order
+(the JAX package's `sort_batch`). For the device sort each limb is cut
+into its 32-bit halves, so the key is four 32-bit lanes, which both
+sort cores take; the run merge and the host sort read the two limbs
+as int64 order lanes.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import torch
 
-from blaze_tpu_torch.types import DataType, Schema
+from blaze_tpu_torch.types import Schema
 from blaze_tpu_torch.batch import Column, ColumnBatch
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.eval import DeviceEvaluator
@@ -60,22 +66,11 @@ from blaze_tpu_torch.ops.util import (
 )
 from blaze_tpu_torch.runtime import dispatch
 
-ROADMAP_DECIMAL = "ROADMAP 'Modules to port' item 3 (decimal128)"
-
-
 @dataclasses.dataclass(frozen=True)
 class SortKey:
     expr: ir.Expr
     ascending: bool = True
     nulls_first: bool = True
-
-
-def check_key_type(what: str, dt: DataType) -> None:
-    """Sort and window keys are fixed-width or strings: decimal(>18)
-    needs two limb lanes."""
-    if dt.is_wide_decimal:
-        raise NotImplementedError(f"{what} of type {dt} waits for "
-                                  f"{ROADMAP_DECIMAL}")
 
 
 class SortExec(PhysicalOp):
@@ -87,8 +82,6 @@ class SortExec(PhysicalOp):
                     k.nulls_first)
             for k in keys
         ]
-        for k in self.keys:
-            check_key_type("sort key", infer_dtype(k.expr, child.schema))
         self.fetch = fetch
 
     @property
@@ -231,7 +224,9 @@ class SortExec(PhysicalOp):
 
         dispatch.record("sort_route.host")
         dispatch.record("host_sorts")
-        names = [f"__sort_lane{i}" for i in range(2 * len(self.keys))]
+        widths = [_lane_count(infer_dtype(k.expr, self.schema))
+                  for k in self.keys]
+        names = [f"__sort_lane{i}" for i in range(sum(widths))]
         tables = []
         for b in list(head) + list(rest):
             b = ensure_compacted(b)
@@ -245,12 +240,13 @@ class SortExec(PhysicalOp):
         # pyarrow orders by their bytes; the other lanes are in order
         # already
         orders = []
-        for i, k in enumerate(self.keys):
+        it = iter(names)
+        for k, w in zip(self.keys, widths):
             desc = not k.ascending and infer_dtype(
                 k.expr, self.schema).is_string_like
-            orders += [(names[2 * i], "ascending"),
-                       (names[2 * i + 1],
-                        "descending" if desc else "ascending")]
+            orders += [(next(it), "ascending")] + [
+                (next(it), "descending" if desc else "ascending")
+                for _ in range(w - 1)]
         tbl = pa.concat_tables(tables).sort_by(orders).drop(names)
         if self.fetch is not None:
             tbl = tbl.slice(0, self.fetch)
@@ -277,27 +273,46 @@ def _host_lanes(cb: ColumnBatch, keys: List[SortKey]) -> list:
 
     n = cb.num_rows
     lanes = [lane[:n].cpu().numpy() for lane in order_lanes(cb, keys)]
-    for i, k in enumerate(keys):
+    at = 0
+    for k in keys:
         col = _key_column(cb, k.expr)
+        i = at  # this key's rank lane; its value lane follows
+        at += _lane_count(col.dtype)
         if col.dtype.is_string_like:
             codes = col.values[:n].cpu().numpy()
             null = None if col.validity is None \
                 else ~col.validity[:n].cpu().numpy()
-            lanes[2 * i + 1] = decode_strings(
+            lanes[i + 1] = decode_strings(
                 codes, null, col.dictionary, col.dtype).fill_null(
                 "" if col.dtype.id.value == "utf8" else b"")
     return lanes
 
 
+def _lane_count(dt) -> int:
+    """A key's order lanes: its null rank, then one value lane (two for
+    a decimal(>18) key)."""
+    return 3 if dt.is_wide_decimal else 2
+
+
 def order_lanes(cb: ColumnBatch, keys: List[SortKey]) -> List[torch.Tensor]:
-    """Two int64 lanes per key, (null rank, value), whose lexicographic
-    order over all keys is the sort's: NULLs first or last, NaN above
-    +inf, -0.0 equal to +0.0, descending keys inverted."""
+    """int64 lanes per key, (null rank, value) or, for a decimal(>18)
+    key, (null rank, high limb, low limb in signed order), whose
+    lexicographic order over all keys is the sort's: NULLs first or
+    last, NaN above +inf, -0.0 equal to +0.0, descending keys
+    inverted."""
     lanes = []
     live = torch.ones(cb.capacity, dtype=torch.bool, device=cb.device)
     for k in keys:
         col = _key_column(cb, k.expr)
         v = _sortable(col)
+        if col.dtype.is_wide_decimal:
+            vals = [v[:, 1], v[:, 0] ^ _MIN64]
+            if not k.ascending:
+                vals = [torch.bitwise_not(x) for x in vals]
+            if col.validity is not None:
+                vals = [x.masked_fill(~col.validity, 0) for x in vals]
+            lanes += [_null_rank(live, col.validity, k.nulls_first)] + vals
+            continue
         if v.is_floating_point():
             f = v.to(torch.float64)
             f = torch.where(f == 0, torch.zeros_like(f), f)
@@ -327,11 +342,30 @@ def _count_at_most(pool: ColumnBatch, keys: List[SortKey],
     return dispatch.host_int((le & pool.live_mask()).sum(), "sort_merge")
 
 
+_MIN64 = -(1 << 63)
+
+
+def _limb_lanes(v: torch.Tensor) -> List[torch.Tensor]:
+    """A (cap, 2) limb key as four int32 lanes, most significant first,
+    whose lexicographic signed order is the 128-bit order: the high
+    limb's top half as it is, every other half with its top bit
+    flipped from unsigned into signed order."""
+    hi, lo = v[:, 1], v[:, 0]
+    halves = [hi >> 32, hi & 0xFFFFFFFF, (lo >> 32) & 0xFFFFFFFF,
+              lo & 0xFFFFFFFF]
+    return [halves[0].to(torch.int32)] + [
+        (h ^ 0x80000000).to(torch.int32) for h in halves[1:]]
+
+
 def sort_batch(cb: ColumnBatch, keys: List[SortKey]) -> ColumnBatch:
     """Sort one compacted batch by the given keys."""
     key_cols = []
     for k in keys:
         col = _key_column(cb, k.expr)
+        if col.dtype.is_wide_decimal:
+            key_cols += [(lane, col.validity, k.ascending, k.nulls_first)
+                         for lane in _limb_lanes(col.values)]
+            continue
         key_cols.append((_sortable(col), col.validity, k.ascending,
                          k.nulls_first))
     idx = sort_indices(key_cols, cb.num_rows, cb.capacity, cb.device)

@@ -1,5 +1,8 @@
 """Shared batch utilities for operators: device gather/compact, host-side
-dictionary unification and ranking, and batch concatenation."""
+dictionary unification and ranking, and batch concatenation. Every
+row-wise helper carries a column's trailing dimension, so decimal(>18)
+(capacity, 2) limb columns move as their rows do (the JAX package's
+`ops/util.py`, `jnp.take(..., axis=0)`)."""
 
 from __future__ import annotations
 
@@ -54,12 +57,17 @@ def occupied_slots(occupied: torch.Tensor, out_cap: int) -> torch.Tensor:
 def compact(cb: ColumnBatch, mask: Optional[torch.Tensor] = None
             ) -> ColumnBatch:
     """Keep rows where mask (AND the batch's own selection) is True, packed
-    to the front (one D2H sync for the surviving row count)."""
+    to the front (one D2H sync for the surviving row count). The result
+    takes the shape bucket of the rows kept, not the input's capacity
+    (the JAX package keeps the capacity, which its static shapes need):
+    a selective filter gathers only its survivors."""
     live = cb.live_mask()
     if mask is not None:
         live = live & mask
     idx, n = _compact_indices(live)
-    return take_batch(cb, idx, host_int(n))
+    n = host_int(n)
+    cap = min(cb.capacity, get_config().bucket_for(n))
+    return take_batch(cb, idx[:cap], n)
 
 
 def ensure_compacted(cb: ColumnBatch) -> ColumnBatch:
@@ -194,7 +202,8 @@ def concat_batches(batches: List[ColumnBatch], schema: Schema,
         parts = [b.columns[ci] for b in batches]
         v = torch.cat([p.values[: b.num_rows]
                        for p, b in zip(parts, batches)])
-        values = torch.zeros(cap, dtype=v.dtype, device=v.device)
+        values = torch.zeros((cap,) + v.shape[1:], dtype=v.dtype,
+                             device=v.device)
         values[:total] = v
         validity = None
         if any(p.validity is not None for p in parts):
@@ -231,7 +240,7 @@ def slice_to_batches(cb: ColumnBatch, batch_size: int) -> List[ColumnBatch]:
 def _rows(t: torch.Tensor, start: int, n: int, cap: int) -> torch.Tensor:
     if start + cap <= t.shape[0]:
         return t[start:start + cap]
-    out = torch.zeros(cap, dtype=t.dtype, device=t.device)
+    out = torch.zeros((cap,) + t.shape[1:], dtype=t.dtype, device=t.device)
     out[:n] = t[start:start + n]
     return out
 

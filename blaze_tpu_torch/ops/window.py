@@ -69,7 +69,7 @@ from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.kernels.compact import compact_perm
 from blaze_tpu_torch.ops.host_lower import lower_strings_host, needs_host
 from blaze_tpu_torch.ops.project import batch_cvs
-from blaze_tpu_torch.ops.sort import SortKey, check_key_type
+from blaze_tpu_torch.ops.sort import SortKey
 from blaze_tpu_torch.ops.util import (
     PACKED_MAX_ROWS,
     _order_key_u32,
@@ -175,11 +175,10 @@ class WindowExec(PhysicalOp):
         for e in self.partition_by + [k.expr for k in self.order_by] + [
             f.source for f in self.functions if f.source is not None
         ]:
-            dt = infer_dtype(e, schema)
-            if dt.is_wide_decimal:
+            if infer_dtype(e, schema).is_wide_decimal:
+                # the JAX package's refusal and words
                 raise NotImplementedError(
                     "window over decimal(>18) is host-tier work")
-            check_key_type("window column", dt)
         for f in self.functions:
             if f.source is not None and needs_host(f.source, schema):
                 raise NotImplementedError(

@@ -104,7 +104,8 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
                                         mode=AggMode.PARTIAL)
             return HostFinalAggExec(FusedWindowAggExec(win, partial), op)
         if not op.keys and not op._host \
-                and keyless_merge_plan(op.aggs) is not None:
+                and keyless_merge_plan(op.aggs,
+                                       op.children[0].schema) is not None:
             pipeline = FusedPipelineExec(fuse_pipelines(leaf),
                                          list(reversed(chain)))
             partial = HashAggregateExec(pipeline, keys=[],

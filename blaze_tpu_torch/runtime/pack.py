@@ -47,24 +47,26 @@ def _itemsize(dtype: torch.dtype) -> int:
 class Layout:
     """The packed format: typed segments in one uint8 buffer, after a
     `header` of bytes, each at an ALIGN-aligned offset. `specs` are
-    (torch dtype, element count); `views(buf)` reads the segments of a
-    buffer of `nbytes` bytes as typed views. A batch from `put_packed`
-    has a HEADER; a fused graph's outputs and its carry (ops/fused.py)
-    have none."""
+    (torch dtype, shape), a shape an element count or a tuple;
+    `views(buf)` reads the segments of a buffer of `nbytes` bytes as
+    typed views of those shapes. A batch from `put_packed` has a
+    HEADER; a fused graph's outputs and its carry (ops/fused.py) have
+    none."""
 
-    def __init__(self, specs: Sequence[Tuple[torch.dtype, int]],
+    def __init__(self, specs: Sequence[Tuple[torch.dtype, object]],
                  header: int = HEADER):
-        self.specs: List[Tuple[torch.dtype, int, int]] = []
+        self.specs: List[Tuple[torch.dtype, int, int, Tuple[int, ...]]] = []
         off = header
-        for dtype, n in specs:
-            nb = n * _itemsize(dtype)
-            self.specs.append((dtype, off, nb))
+        for dtype, shape in specs:
+            shape = (shape,) if isinstance(shape, int) else tuple(shape)
+            nb = int(np.prod(shape)) * _itemsize(dtype)
+            self.specs.append((dtype, off, nb, shape))
             off += _round_up(nb)
         self.nbytes = off
 
     def views(self, buf: torch.Tensor) -> List[torch.Tensor]:
-        return [buf[off: off + nb].view(dtype)
-                for dtype, off, nb in self.specs]
+        return [buf[off: off + nb].view(dtype).view(shape)
+                for dtype, off, nb, shape in self.specs]
 
 
 class Staging:
@@ -104,12 +106,15 @@ def put_packed(segments: Sequence[Tuple[np.ndarray, object]], num_rows: int,
     """Pad and pack host arrays into one buffer and copy it to `device`
     in one transfer.
 
-    `segments` are `(values, fill)`: the live rows (at most `cap`) and
-    the scalar that pads them to `cap`. Returns the device byte buffer
-    (header included) and one typed device view per segment. CUDA
-    devices need `staging`; a CPU batch aliases a fresh host buffer."""
+    `segments` are `(values, fill)`: the live rows (at most `cap`,
+    each row a scalar or, for decimal(>18) limbs, a pair) and the
+    scalar that pads them to `cap`. Returns the device byte buffer
+    (header included) and one typed device view per segment, shaped
+    (cap,) + the row shape. CUDA devices need `staging`; a CPU batch
+    aliases a fresh host buffer."""
     dtypes = [np.dtype(v.dtype) for v, _ in segments]
-    lay = Layout([(_TORCH[dt], cap) for dt in dtypes])
+    shapes = [(cap,) + v.shape[1:] for v, _ in segments]
+    lay = Layout([(_TORCH[dt], sh) for dt, sh in zip(dtypes, shapes)])
     cuda = device.type == "cuda"
     if cuda:
         slot, pinned = staging.take(lay.nbytes)
@@ -118,9 +123,10 @@ def put_packed(segments: Sequence[Tuple[np.ndarray, object]], num_rows: int,
         host = np.empty(lay.nbytes, dtype=np.uint8)
     host[:HEADER] = 0
     host[:8].view(np.int64)[0] = num_rows
-    for (vals, fill), dt, (_, off, nb) in zip(segments, dtypes, lay.specs):
+    for (vals, fill), dt, (_, off, nb, sh) in zip(segments, dtypes,
+                                                  lay.specs):
         n = len(vals)
-        seg = host[off: off + nb].view(dt)
+        seg = host[off: off + nb].view(dt).reshape(sh)
         seg[:n] = vals
         seg[n:] = fill
     if cuda:
@@ -151,9 +157,10 @@ def live_rows(buf: torch.Tensor) -> torch.Tensor:
 
 
 def get_packed(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Host copies of 1-D tensors of one device in ONE fetch: the
-    device concatenates their bytes (one launch), the host splits the
-    copy into views. A single tensor, or CPU tensors, need no packing."""
+    """Host copies of tensors of one device in ONE fetch, each in its
+    own shape: the device concatenates their bytes (one launch), the
+    host splits the copy into views. A single tensor, or CPU tensors,
+    need no packing."""
     if not tensors:
         return []
     if tensors[0].device.type == "cpu":
@@ -161,13 +168,24 @@ def get_packed(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     dispatch.record("d2h_fetches")
     if len(tensors) == 1:
         return [tensors[0].cpu().numpy()]
-    flat = torch.cat([t.contiguous().view(torch.uint8) for t in tensors])
-    host = flat.cpu().numpy()
+    return split_bytes(concat_bytes(tensors).cpu().numpy(), tensors)
+
+
+def concat_bytes(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The bytes of tensors of one device, back to back, in one uint8
+    tensor on that device (one launch)."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def split_bytes(host: np.ndarray, tensors: Sequence[torch.Tensor]
+                ) -> List[np.ndarray]:
+    """`concat_bytes`'s host copy as numpy views shaped like `tensors`."""
     out = []
     off = 0
     for t in tensors:
         dt = np.dtype(str(t.dtype).replace("torch.", ""))
         nb = t.numel() * dt.itemsize
-        out.append(host[off: off + nb].view(dt))
+        out.append(host[off: off + nb].view(dt).reshape(t.shape))
         off += nb
     return out

@@ -116,22 +116,37 @@ def test_interop_rejects_mixed_capacity_and_strings():
         interop.batch_from_numpy(
             schema, [np.zeros(256, np.int32), np.zeros(512, np.int32)],
             [None, None], None, 10, "cpu")
-    # strings cross as codes with their dictionary; decimal128 waits
+    # strings cross as codes with their dictionary; decimal(>18) as
+    # (capacity, 2) limbs, and a column of another shape is refused
     cb = interop.batch_from_numpy(
         Schema([Field("s", DataType.utf8())]),
         [np.array([1, 0, 1, 7], np.int32)], [np.array([1, 1, 1, 0], bool)],
         None, 3, "cpu", dictionaries=[pa.array(["x", "y"])])
     assert cb.to_pydict() == {"s": ["y", "x", "y"]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interop.batch_from_numpy(
-            Schema([Field("w", DataType.decimal(30, 2))]),
-            [np.zeros(4, np.int64)], [None], None, 4, "cpu")
+    wide = Schema([Field("w", DataType.decimal(30, 2))])
+    with pytest.raises(ValueError, match="shape"):
+        interop.batch_from_numpy(wide, [np.zeros(4, np.int64)], [None],
+                                 None, 4, "cpu")
+    limbs = np.array([[5, 0], [-5, -1], [0, 1], [9, 9]], np.int64)
+    cb = interop.batch_from_numpy(wide, [limbs], [None], None, 3, "cpu")
+    assert cb.to_pydict() == {"w": [decimal.Decimal("0.05"),
+                                    decimal.Decimal("-0.05"),
+                                    decimal.Decimal(1 << 64) / 100]}
 
 
-# utf8 columns are dictionary-encoded since the strings slice
+# utf8 columns are dictionary-encoded since the strings slice, and
+# decimal(>18) columns load as limbs since the decimal128 slice; a type
+# no slice brings still raises
 @pytest.mark.parametrize("typ", [pa.decimal128(38, 10),
                                  pa.decimal128(30, 2)])
 def test_unsupported_columns_raise_naming_roadmap(typ):
-    arr = pa.array([decimal.Decimal("1.5")], type=typ)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColumnBatch.from_arrow(pa.record_batch({"c": arr}), device=CPU)
+    arr = pa.array([decimal.Decimal("1.5"), None,
+                    decimal.Decimal(10**17) * 3], type=typ)
+    rb = pa.record_batch({"c": arr})
+    cb = ColumnBatch.from_arrow(rb, device=CPU)
+    assert tuple(cb.columns[0].values.shape) == (cb.capacity, 2)
+    assert cb.to_arrow().equals(rb)
+    assert JaxBatch.from_arrow(rb).to_arrow().equals(rb)
+    with pytest.raises(NotImplementedError, match="list"):
+        ColumnBatch.from_arrow(pa.record_batch({"c": pa.array(
+            [[1]], pa.list_(pa.int32()))}), device=CPU)

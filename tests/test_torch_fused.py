@@ -54,7 +54,7 @@ from blaze_tpu_torch.runtime.executor import decode_task, execute_task
 from blaze_tpu_torch.types import TypeId
 
 from test_torch_hash_aggregate import assert_rows_equal
-from torch_support import assert_arrow_equal
+from torch_support import assert_arrow_equal, computed_once
 
 ROWS = 5000
 BATCH = 1024  # five batches, the last one short: the carry merges
@@ -140,7 +140,20 @@ CASES = [(p, n) for p in PLANS for n in (False, True)]
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{(plan, nulls_nan): (blob, port batches, JAX batches, path)}; the
-    JAX side without host filter pushdown (ROADMAP section 3)."""
+    JAX side without host filter pushdown (ROADMAP section 3), its
+    files, blobs and results made once a session for all xdist
+    workers."""
+    jax_side = computed_once(tmp_path_factory, "fused-jax-runs",
+                             lambda: _jax_runs(tmp_path_factory))
+    out = {}
+    for key, (blob, exp, path) in jax_side.items():
+        got = list(execute_task(blob, ExecContext(
+            device="cpu", config=EngineConfig(batch_size=BATCH))))
+        out[key] = (blob, got, exp, path)
+    return out
+
+
+def _jax_runs(tmp_path_factory):
     out = {}
     for nulls_nan in (False, True):
         path = _write(tmp_path_factory.mktemp("fused") / "ss.parquet",
@@ -148,13 +161,11 @@ def runs(tmp_path_factory):
         plans = _plans(path)
         for name in PLANS:
             blob = jax_task_to_proto(plans[name], 0)
-            got = list(execute_task(blob, ExecContext(
-                device="cpu", config=EngineConfig(batch_size=BATCH))))
             exp = list(jax_execute_task(blob, JaxContext(
                 config=JaxConfig(batch_size=BATCH,
                                  host_filter_pushdown=False),
                 mesh_mode="off")))
-            out[(name, nulls_nan)] = (blob, got, exp, path)
+            out[(name, nulls_nan)] = (blob, exp, path)
     return out
 
 

@@ -249,3 +249,33 @@ def test_keyed_empty_input_yields_no_batch():
     partial = HashAggregateExec(MemoryScanExec([[cb]], SCHEMA), key_list,
                                 aggs, AggMode.PARTIAL)
     assert run_plan(partial, ExecContext(device="cpu")).num_rows == 0
+
+
+@pytest.mark.parametrize("keyed", [False, True])
+@pytest.mark.parametrize("mode", ["complete", "partial_final"])
+def test_var_pop_of_one_float64_row_is_zero(keyed, mode):
+    """Spark's VAR_POP and STDDEV_POP of a one-row float64 group are 0.0
+    (x = 123.456789; the oracle is Spark's: s2 - s1 * mean rounds twice
+    to exactly 0). The JAX package's result here is a reference fault:
+    XLA contracts s2 - s1 * mean into one FMA
+    (blaze_tpu/ops/hash_aggregate.py:1277-1282), which leaves the
+    rounding error of s1 * mean behind."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.batch import ColumnBatch
+
+    rb = pa.record_batch({"g": pa.array([7], pa.int32()),
+                          "x": pa.array([123.456789], pa.float64())})
+    cb = ColumnBatch.from_arrow(rb, device="cpu")
+    scan = MemoryScanExec([[cb]], cb.schema)
+    keys = [(Col("g"), "g")] if keyed else []
+    aggs = [(AggExpr(AggFn.VAR_POP, Col("x")), "vp"),
+            (AggExpr(AggFn.STDDEV_POP, Col("x")), "sp")]
+    if mode == "complete":
+        plan = HashAggregateExec(scan, keys, aggs, AggMode.COMPLETE)
+    else:
+        plan = HashAggregateExec(
+            HashAggregateExec(scan, keys, aggs, AggMode.PARTIAL),
+            keys and [(Col("g"), "g")], aggs, AggMode.FINAL)
+    out = run_plan(plan, ExecContext(device="cpu")).to_pydict()
+    assert out["vp"] == [0.0] and out["sp"] == [0.0]

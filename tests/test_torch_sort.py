@@ -63,7 +63,7 @@ from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.executor import run_plan
 from blaze_tpu_torch.types import DataType, Field, Schema
 
-from torch_support import assert_arrow_equal, jax_batch
+from torch_support import assert_arrow_equal, computed_once, jax_batch
 
 CAP, ROWS = 256, 200
 KEY_TYPES = ["bool", "int8", "int16", "int32", "int64", "float32",
@@ -154,8 +154,13 @@ def _numpy_order(keys):
 
 
 @pytest.fixture(scope="module")
-def jax_perms():
-    """{(case, core): JAX permutation} for both of its sort cores."""
+def jax_perms(tmp_path_factory):
+    """{(case, core): JAX permutation} for both of its sort cores,
+    computed once a session for all xdist workers."""
+    return computed_once(tmp_path_factory, "sort-jax-perms", _jax_perms)
+
+
+def _jax_perms():
     import os
 
     out = {}

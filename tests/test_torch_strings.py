@@ -255,6 +255,23 @@ def _host_exprs(m, DT):
 
 _HOST_NAMES = sorted(_host_exprs(ir, DataType))
 
+#: functions where the port follows Spark and the JAX package pyarrow:
+#: Java's full case mapping, and trims of U+0020 only
+SPARK_RULE = ("lower", "upper", "trim", "ltrim", "rtrim")
+
+
+def java_string_fn(name, v):
+    """A Python oracle of Spark's UTF8String functions: toUpperCase and
+    toLowerCase map ASCII text byte by byte and other text with Java's
+    String methods, whose full case mapping (SpecialCasing, a final
+    sigma) Python's str.upper and str.lower share; the trims strip
+    U+0020 only."""
+    if v is None:
+        return None
+    return {"upper": str.upper, "lower": str.lower,
+            "trim": lambda x: x.strip(" "), "ltrim": lambda x: x.lstrip(" "),
+            "rtrim": lambda x: x.rstrip(" ")}[name](v)
+
 
 @pytest.fixture(scope="module")
 def host_arrays():
@@ -284,7 +301,39 @@ def test_host_evaluator_matches_jax(name, host_arrays):
                        JField("i", JDataType.int32())])
     exp = JHostEvaluator(jschema, host_arrays).evaluate(
         _host_exprs(jir, JDataType)[name])
+    if name in SPARK_RULE:
+        # Spark's rule on every row; the JAX package's where the two
+        # rules agree (not 'ß', whose upper is 'SS' in Spark)
+        want = [java_string_fn(name, v) for v in host_arrays[0].to_pylist()]
+        assert got.to_pylist() == want, name
+        agree = [w == e for w, e in zip(want, exp.to_pylist())]
+        assert sum(agree) > 200
+        got, exp = got.filter(pa.array(agree)), exp.filter(pa.array(agree))
     assert got.equals(exp), (name, got[:8], exp[:8])
+
+
+@pytest.mark.parametrize("name,arg,want", [
+    ("upper", "ß", "SS"), ("upper", "\ufb01", "FI"),
+    ("lower", "\u0391\u03a3", "\u03b1\u03c2"),
+    ("trim", "\tab\n", "\tab\n"), ("ltrim", " \tab ", "\tab "),
+    ("rtrim", " ab\t ", " ab\t"), ("upper", "abc", "ABC"),
+    ("lower", "\u00c9T\u00c9", "\u00e9t\u00e9")])
+def test_case_and_trim_follow_spark(name, arg, want):
+    """Spark's upper, lower and trims on the port's host evaluator, the
+    row path and the dictionary path, against Java's rules: upper('ß')
+    is 'SS', upper('ﬁ') is 'FI', lower('ΑΣ') ends in a final sigma,
+    and a trim strips U+0020 only. (The JAX package gives 'ẞ', 'ﬁ',
+    'ασ' and 'ab', pyarrow's rules.)"""
+    assert java_string_fn(name, arg) == want
+    schema = Schema([Field("s", DataType.utf8())])
+    e = ir.ScalarFn(name, (ir.BoundCol(0, DataType.utf8()),))
+    arr = pa.array([arg, None, arg])
+    got = HostEvaluator(schema, [arr]).evaluate(e)
+    assert got.to_pylist() == [want, None, want]
+    cb = ColumnBatch.from_arrow(pa.record_batch({"s": arr}), device=CPU)
+    (res,), _, aug = lower_strings_host([e], cb)
+    assert aug.to_arrow().column(res.index).to_pylist() == [want, None,
+                                                             want]
 
 
 def test_host_hash_and_to_date_against_oracles(host_arrays):
@@ -363,6 +412,12 @@ def test_lower_strings_host_matches_jax(case):
         exp = pc.cast(port.to_arrow().column(1), pa.utf8())
     else:
         exp = jaug.to_arrow().column(jr.index)
+    if case == 1:
+        # upper follows Spark ('ß' -> 'SS'), the JAX package pyarrow
+        src = port.to_arrow().column(0).to_pylist()
+        assert got.to_pylist() == [java_string_fn("upper", v) for v in src]
+        agree = pa.array([v != "ß" for v in src])
+        got, exp = got.filter(agree), exp.filter(agree)
     assert got.equals(exp), (case, got[:10], exp[:10])
 
 

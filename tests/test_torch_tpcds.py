@@ -75,3 +75,24 @@ def test_tpcds_query_on_port(env, q, flavor):
 def test_matrix_covers_the_99_queries():
     assert len(SUPPORT.QUERIES) == 99
     assert set(QUERIES_MOD.ORACLES) == set(SUPPORT.QUERIES)
+
+
+def test_rank_tolerant_checks_load_without_jax(env):
+    """chip_smoke's tpcds99 holds q67 and q86 on the card to the
+    reference's rank-tolerant comparisons, loaded from
+    tests/test_tpcds_exchange.py by source (no JAX module): each
+    accepts its oracle's own frame, and q67's rejects a rank moved
+    past what any tie allows."""
+    tables, _, _ = env
+    tol = torch_tpcds_support.rank_tolerant(QUERIES_MOD)
+    rolled = QUERIES_MOD.q67_rolled_frame(tables)
+    q67 = QUERIES_MOD.ORACLES["q67"](tables)
+    # the check walks the rows it is given: 20 of them suffice here
+    tol._assert_rank_tolerant_q67(q67.head(20), rolled)
+    q86 = QUERIES_MOD.ORACLES["q86"](tables)
+    tol._assert_rank_tolerant_q86(q86.head(20),
+                                  QUERIES_MOD.q86_rolled_frame(tables))
+    bad = q67.head(3).copy()
+    bad.loc[bad.index[0], "rk"] = 100
+    with pytest.raises(AssertionError):
+        tol._assert_rank_tolerant_q67(bad, rolled)

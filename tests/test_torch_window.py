@@ -68,7 +68,7 @@ from blaze_tpu_torch.runtime.executor import (
 )
 from blaze_tpu_torch.types import DataType, Field, Schema
 
-from torch_support import jax_batch
+from torch_support import computed_once, jax_batch
 
 N, CAP = 300, 512
 CPU = ExecContext(device="cpu")
@@ -139,13 +139,17 @@ def _window(W, F, K, C, scan, fns=FNS, order_asc=True, nulls_first=False):
 
 
 @pytest.fixture(scope="module")
-def main_run():
+def main_run(tmp_path_factory):
+    """Both packages' window over the 132 functions; the JAX result (a
+    15 s compile) is computed once a session for all xdist workers."""
     cols, valid = _inputs()
     tb, jb = _batches(cols, valid)
     got = run_plan(_window(WindowExec, WindowFn, SortKey, Col,
                            MemoryScanExec([[tb]], SCHEMA)), CPU)
-    exp = jax_run_plan(_window(JWindow, JFn, JKey, JCol,
-                               J.MemoryScanExec([[jb]], jb.schema)))
+    exp = computed_once(
+        tmp_path_factory, "window-main-run",
+        lambda: jax_run_plan(_window(JWindow, JFn, JKey, JCol,
+                                     J.MemoryScanExec([[jb]], jb.schema))))
     return cols, valid, got, exp
 
 

@@ -54,3 +54,29 @@ def jax_batch(schema, values, validity, selection, num_rows):
     ]
     sel = None if selection is None else jnp.asarray(selection)
     return ColumnBatch(js, cols, num_rows, sel)
+
+
+def computed_once(tmp_path_factory, name, compute):
+    """`compute()`, run once per test session and shared by the xdist
+    workers: the first worker to ask computes it under an exclusive
+    lock and pickles it under the session's shared temporary root; the
+    others wait for the lock and read it. For JAX references whose
+    compile costs seconds, which every worker would otherwise repeat.
+    Without xdist it is simply computed."""
+    import fcntl
+    import os
+    import pickle
+
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"computed-once-{name}.pkl"
+    with open(root / f"computed-once-{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.is_file():
+            return pickle.loads(path.read_bytes())
+        value = compute()
+        tmp = path.with_suffix(".tmp")
+        tmp.write_bytes(pickle.dumps(value))
+        tmp.replace(path)
+        return value

@@ -56,3 +56,37 @@ def load(n_sales: Optional[int] = None
 
 def query_order(queries) -> list:
     return sorted(queries, key=lambda q: int(q[1:]))
+
+
+RANK_TOLERANT = ("_rank_bounds", "_assert_rank_tolerant_q86",
+                 "_assert_rank_tolerant_q67")
+
+
+def rank_tolerant(queries: types.ModuleType) -> types.SimpleNamespace:
+    """The reference's rank-tolerant comparisons of q67 and q86
+    (tests/test_tpcds_exchange.py: `_rank_bounds`,
+    `_assert_rank_tolerant_q86`, `_assert_rank_tolerant_q67`): those
+    three functions' source, read from that file with the same rewrite
+    as `load` (its `tests.test_tpcds_queries` imports pointed at
+    `queries`, the port copy from `load`), executed beside numpy and
+    pandas. The rest of that file, which drives the JAX package, is not
+    run."""
+    import ast
+
+    import numpy as np
+    import pandas as pd
+
+    path = os.path.join(_HERE, "test_tpcds_exchange.py")
+    with open(path) as f:
+        src = f.read()
+    tree = ast.parse(src)
+    parts = [ast.get_source_segment(src, node) for node in tree.body
+             if isinstance(node, ast.FunctionDef)
+             and node.name in RANK_TOLERANT]
+    if len(parts) != len(RANK_TOLERANT):
+        raise RuntimeError(f"{path}: expected {RANK_TOLERANT}")
+    code = "\n\n\n".join(parts).replace("from tests.test_tpcds_queries",
+                                        f"from {queries.__name__}")
+    ns = {"np": np, "pd": pd}
+    exec(compile(code, path, "exec"), ns)
+    return types.SimpleNamespace(**{n: ns[n] for n in RANK_TOLERANT})
