@@ -254,9 +254,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries `t_s`, the script's
+    seconds so far (where the script's time goes, against its limit)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1452,14 +1457,17 @@ def profile_run(torch, fn, task: str, wall: float):
 
 def counted_profiled(torch, fn, task: str, kernels):
     """run_counted over ONE run under torch.profiler, for a long task
-    that runs once: its wall is the profiled wall (the line says so)."""
+    that runs once: its wall is the profiled wall (the line says so).
+    Only device activity is recorded: the line reads device events
+    alone, and the host ops of a 200-task stage cost the profiler's
+    post-processing more than the stage itself (tpcds_customer_exchange:
+    a 33 s run, then 85 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     held = {}
 
     def under():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         held["prof"] = prof
