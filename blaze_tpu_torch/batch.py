@@ -30,6 +30,7 @@ a NULL row's code is 0 whatever the dictionary holds.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from typing import List, Optional, Sequence, Tuple
 
@@ -332,6 +333,9 @@ class PackedColumnBatch(ColumnBatch):
 
     buf: Optional[torch.Tensor] = None
     key: Tuple = ()
+    # schema positions of pruned columns: shared zero placeholders,
+    # not in `buf` (`from_arrow_pruned`)
+    placeholders: Tuple[int, ...] = ()
 
     @staticmethod
     def from_arrow(rb, capacity: Optional[int] = None,
@@ -358,9 +362,52 @@ class PackedColumnBatch(ColumnBatch):
             values = next(it)
             cols.append(Column(field.dtype, values,
                                next(it) if valid is not None else None, d))
-        key = (cap, tuple((str(c.values.dtype), tuple(c.values.shape[1:]),
-                           c.validity is not None) for c in cols))
-        return PackedColumnBatch(schema, cols, n, None, buf, key)
+        return PackedColumnBatch(schema, cols, n, None, buf, _layout_key(
+            cap, cols, ()))
+
+    @staticmethod
+    def from_arrow_pruned(rb, schema: Schema, present: Sequence[int],
+                          capacity: Optional[int] = None,
+                          device: Optional[torch.device] = None,
+                          staging=None) -> "PackedColumnBatch":
+        """`from_arrow` of the columns at `present` (ascending) of
+        `schema`, in one copy; every other position is a shared zero
+        placeholder (`placeholder_values`), never decoded nor copied,
+        for a column no consumer reads (planner/colprune.py)."""
+        sub = PackedColumnBatch.from_arrow(rb, capacity, device, staging)
+        cap, dev = sub.capacity, sub.buf.device
+        pres = set(present)
+        it = iter(sub.columns)
+        cols = [next(it) if i in pres else
+                Column(f.dtype, placeholder_values(f.dtype, cap, dev))
+                for i, f in enumerate(schema)]
+        holes = tuple(i for i in range(len(schema)) if i not in pres)
+        return PackedColumnBatch(schema, cols, rb.num_rows, None, sub.buf,
+                                 _layout_key(cap, cols, holes), holes)
+
+
+def _layout_key(cap: int, cols: List[Column], holes: Tuple[int, ...]):
+    """A packed batch's layout: its capacity, each column's dtype, shape
+    and validity, and the placeholder positions."""
+    return (cap, tuple((str(c.values.dtype), tuple(c.values.shape[1:]),
+                        c.validity is not None) for c in cols), holes)
+
+
+_PLACEHOLDERS: dict = {}
+_PLACEHOLDER_LOCK = threading.Lock()
+
+
+def placeholder_values(dt: DataType, capacity: int,
+                       device: torch.device) -> torch.Tensor:
+    """Zero values of a pruned column, one tensor per (dtype, shape,
+    device) shared by every batch (never written: no consumer reads a
+    pruned column)."""
+    key = (torch_dtype(dt), value_shape(dt, capacity), str(device))
+    with _PLACEHOLDER_LOCK:
+        t = _PLACEHOLDERS.get(key)
+        if t is None:
+            t = _PLACEHOLDERS[key] = zero_values(dt, capacity, device)
+    return t
 
 
 def host_columns(rb):

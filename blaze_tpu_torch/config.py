@@ -47,6 +47,9 @@ class EngineConfig:
     ipc_compression_level: int = 1
     # torch device the engine computes on ("cuda", "cuda:1", "cpu").
     device: str = "cuda"
+    # Apply the filter conjuncts planner/colprune pushes into a parquet
+    # scan on the host, before the copy (the JAX package's knob).
+    host_filter_pushdown: bool = True
     # Join core (the JAX package's config.join_core): "scatter" builds
     # a hash table of the build relation (a dense direct table, a fused
     # key|row table or the generic table), demoted to the sorted core

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Iterator, List, Optional, Union
 
 import torch
@@ -22,9 +23,13 @@ class MetricNode:
         self.name = name
         self.children = children or []
         self.counters: Dict[str, int] = {}
+        # tasks of one plan run in threads (runtime/scheduler.py) and
+        # share their context's tree
+        self._lock = threading.Lock()
 
     def add(self, key: str, value: int) -> None:
-        self.counters[key] = self.counters.get(key, 0) + int(value)
+        with self._lock:
+            self.counters[key] = self.counters.get(key, 0) + int(value)
 
     def flatten(self) -> Dict[str, Dict[str, int]]:
         out = {self.name: dict(self.counters)}

@@ -94,15 +94,19 @@ def _graph_batch(cb: ColumnBatch) -> bool:
 
 def _static_input(cb: PackedColumnBatch):
     """A copy of a packed batch's buffer and its columns as views of
-    it: a graph's input, refilled for each batch."""
-    lay = Layout([(t.dtype, t.shape) for c in cb.columns
+    it: a graph's input, refilled for each batch. A pruned column keeps
+    its shared placeholder (batch.placeholder_values)."""
+    holes = set(cb.placeholders)
+    lay = Layout([(t.dtype, t.shape)
+                  for i, c in enumerate(cb.columns) if i not in holes
                   for t in (c.values, c.validity) if t is not None])
     if lay.nbytes != cb.buf.numel():
         raise ValueError("a packed batch's columns do not match its buffer")
     buf = cb.buf.clone()
     it = iter(lay.views(buf))
-    return buf, [(next(it), next(it) if c.validity is not None else None)
-                 for c in cb.columns]
+    return buf, [(c.values, None) if i in holes else
+                 (next(it), next(it) if c.validity is not None else None)
+                 for i, c in enumerate(cb.columns)]
 
 
 def _flat(cols: List[CV], sel: Optional[torch.Tensor]) -> List[torch.Tensor]:

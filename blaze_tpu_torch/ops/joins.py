@@ -477,8 +477,11 @@ class HashJoinExec(PhysicalOp):
         with self._build_lock:
             if self._build is None:
                 left = self.children[0]
-                batches = [b for p in range(left.partition_count)
-                           for b in left.execute(p, ctx)]
+                # a broadcast child replays the whole relation from any
+                # one partition; collecting all would repeat its rows
+                parts = [0] if getattr(left, "is_broadcast", False) \
+                    else range(left.partition_count)
+                batches = [b for p in parts for b in left.execute(p, ctx)]
                 self._build = concat_batches(batches, left.schema,
                                              ctx.device)
             return self._build

@@ -1,6 +1,9 @@
 """In-memory scan: the test/bench fixture leaf (DataFusion MemoryExec
 analog; the reference's join unit tests are built on the same pattern,
-sort_merge_join_exec.rs build_table fixtures)."""
+sort_merge_join_exec.rs build_table fixtures). A partition holds
+ColumnBatches, or pyarrow RecordBatches that enter the device of the
+executing task (how planner/convert.py builds a MemorySpec's scan, before
+any task has a device)."""
 
 from __future__ import annotations
 
@@ -29,4 +32,7 @@ class MemoryScanExec(PhysicalOp):
     def execute(self, partition: int, ctx: ExecContext
                 ) -> Iterator[ColumnBatch]:
         for b in self.partitions[partition]:
-            yield b
+            if isinstance(b, ColumnBatch):
+                yield b
+            else:
+                yield ColumnBatch.from_arrow(b, device=ctx.device)

@@ -13,10 +13,17 @@ each row group and file has its own), stays on the host beside it.
 Decode and copy run on a prefetch thread (runtime/prefetch.py) ahead of
 the device compute. Row-group pruning evaluates the pruning predicate
 against row-group statistics before any IO, and byte ranges in a
-FileRange select row groups the way Spark's splits do. Column pruning
-and host filter pushdown (planner/colprune in the JAX package) wait
-for ROADMAP 'Modules to port' item 2: every column of the scan's
-schema is read and the filter runs on the device.
+FileRange select row groups the way Spark's splits do.
+
+The planner's hints (planner/colprune.py, installed by the executor)
+narrow the read: a column no ancestor reads is neither decoded nor
+copied (a shared zero placeholder keeps its schema position), and the
+`col <cmp> literal` conjuncts pushed from the filter above the scan
+skip row groups by their statistics and drop rows on the host before
+the copy. The device filter still applies the whole predicate. Both
+keep Spark's order, where NaN is above every value: a NaN row passes a
+pushed `>` or `>=`, and float statistics never prove that no row
+passes one (parquet's min and max leave NaN out).
 """
 
 from __future__ import annotations
@@ -101,34 +108,78 @@ class ParquetScanExec(PhysicalOp):
         from blaze_tpu_torch.runtime.pack import Staging
         from blaze_tpu_torch.runtime.prefetch import prefetch
 
+        import pyarrow as pa
+
         cfg = ctx.config
         cols = self.projection or [f.name for f in self._schema]
         staging = Staging() if ctx.device.type == "cuda" else None
+        filters = list(getattr(self, "_hint_filters", ()) or ()) \
+            if cfg.host_filter_pushdown else []
+        read_names, keep_names, present = self._read_plan(cols, filters)
+        ctx.metrics.add("columns_decoded", len(read_names))
+        ctx.metrics.add("columns_in_schema", len(cols))
 
         def decode() -> Iterator[ColumnBatch]:
             for fr in self.file_groups[partition]:
                 pf = pq.ParquetFile(store_for(fr.path).open_input(fr.path))
-                groups = self._select_row_groups(pf, fr)
+                groups = self._select_row_groups(pf, fr, filters)
                 if not groups:
                     continue
                 for rb in pf.iter_batches(
                     batch_size=cfg.batch_size, row_groups=groups,
-                    columns=cols, use_threads=True,
+                    columns=read_names, use_threads=True,
                 ):
                     ctx.metrics.add("input_rows", rb.num_rows)
                     ctx.metrics.add("input_batches", 1)
+                    if filters:
+                        before = rb.num_rows
+                        rb = _apply_host_filters(rb, filters)
+                        ctx.metrics.add("pushdown_filtered_rows",
+                                        before - rb.num_rows)
                     if rb.num_rows == 0:
                         continue
-                    yield PackedColumnBatch.from_arrow(
-                        rb, device=ctx.device, staging=staging)
+                    if present is None:
+                        yield PackedColumnBatch.from_arrow(
+                            rb, device=ctx.device, staging=staging)
+                        continue
+                    sub = pa.record_batch([rb.column(c) for c in keep_names],
+                                          names=keep_names)
+                    yield PackedColumnBatch.from_arrow_pruned(
+                        sub, self._schema, present, device=ctx.device,
+                        staging=staging)
 
         # overlap parquet decode + H2D with downstream device compute
         yield from prefetch(decode(), depth=2)
 
     # ------------------------------------------------------------------
-    def _select_row_groups(self, pf, fr: FileRange) -> List[int]:
+    def _read_plan(self, cols: List[str], filters=()):
+        """(columns to decode, columns to keep, their schema positions or
+        None for all) under the colprune hints: the required columns and
+        those a pushed conjunct in `filters` reads; with none required
+        (COUNT(*)), the cheapest column, for its row count."""
+        required = getattr(self, "_hint_required", None)
+        if required is None:
+            return cols, cols, None
+        req_names = {cols[i] for i in required if i < len(cols)}
+        filt_names = {name for name, _, _ in filters}
+        read_names = [c for c in cols if c in req_names or c in filt_names]
+        if not read_names:
+            def decode_cost(c):
+                dt = self._schema.fields[self._schema.index_of(c)].dtype
+                penalty = 100 if dt.is_dictionary_encoded else 0
+                return penalty + dt.physical_dtype().itemsize
+
+            read_names = [min(cols, key=decode_cost)]
+        keep_names = [c for c in cols if c in req_names] or read_names[:1]
+        if keep_names == cols and read_names == cols:
+            return cols, cols, None
+        return read_names, keep_names, [cols.index(c) for c in keep_names]
+
+    def _select_row_groups(self, pf, fr: FileRange,
+                           filters=()) -> List[int]:
         """Row groups whose byte midpoint falls in the split range (Spark's
-        split ownership rule) and that survive stats pruning."""
+        split ownership rule) and that survive stats pruning (the pruning
+        predicate and the pushed conjuncts)."""
         md = pf.metadata
         out = []
         for i in range(md.num_row_groups):
@@ -142,8 +193,41 @@ class ParquetScanExec(PhysicalOp):
                 self.pruning_predicate, rg, self._schema
             ):
                 continue
+            if any(not _minmax_may_match(_rg_stats(name, rg), op, value)
+                   for name, op, value in filters):
+                continue
             out.append(i)
         return out
+
+
+def _apply_host_filters(rb, filters):
+    """The pushed `(name, cmp, literal)` conjuncts, with pyarrow compute,
+    before any padding or copy. A NULL comparison drops the row, as the
+    device mask does; a NaN passes `>` and `>=` (Spark's order, which
+    the device filter keeps; pyarrow's comparison alone would drop it).
+    A conjunct pyarrow cannot evaluate is skipped: the device filter
+    re-applies the whole predicate."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    fns = {
+        ir.Op.LT: pc.less, ir.Op.LTE: pc.less_equal,
+        ir.Op.GT: pc.greater, ir.Op.GTE: pc.greater_equal,
+        ir.Op.EQ: pc.equal, ir.Op.NEQ: pc.not_equal,
+    }
+    mask = None
+    for name, op, value in filters:
+        col = rb.column(name)
+        try:
+            m = fns[op](col, value)
+        except (pa.ArrowException, TypeError):
+            continue
+        if op in (ir.Op.GT, ir.Op.GTE) and pa.types.is_floating(col.type):
+            m = pc.or_(m, pc.is_nan(col))
+        mask = m if mask is None else pc.and_(mask, m)
+    if mask is None:
+        return rb
+    return rb.filter(mask)
 
 
 def _rg_stats(name: str, rg):
@@ -159,6 +243,9 @@ def _minmax_may_match(stats, op: ir.Op, value) -> bool:
     the comparison."""
     if stats is None or not stats.has_min_max:
         return True
+    if op in (ir.Op.GT, ir.Op.GTE) and stats.physical_type in ("FLOAT",
+                                                               "DOUBLE"):
+        return True  # min/max leave NaN out, and NaN passes (Spark)
     lo, hi = stats.min, stats.max
     try:
         if op is ir.Op.EQ:

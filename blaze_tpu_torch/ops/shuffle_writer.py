@@ -17,13 +17,23 @@ by a binary search of the sorted ids, one gather of the columns. Then
 one copy of the offsets and one of the sorted batch to the host, where
 each partition's rows are a slice of one Arrow batch, encoded as one
 zstd IPC part.
+
+`range` (Spark's RangePartitioning, the JAX package's range mode) takes
+bounds sampled when the plan is made (parallel/exchange.py) and ranks
+rows on the host: one fetch of the key columns a batch, the ids
+(`range_partition_ids`: the bounds each key tuple exceeds) copied back,
+then the same sort and gather. Keys rank by value in the physical
+representation (a date's days, a decimal's unscaled integer), a
+string by its bytes, not its dictionary code, NaN above every number,
+NULL first in either direction; a decimal(>18) key is refused (the JAX
+package fails on one too).
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -208,6 +218,143 @@ def scatter_by_partition(cb: ColumnBatch, pids: torch.Tensor,
     return rb, offsets
 
 
+def _key_index(e: ir.Expr, schema: Schema) -> int:
+    if isinstance(e, ir.BoundCol):
+        return e.index
+    if isinstance(e, ir.Col):
+        return schema.index_of(e.name)
+    raise NotImplementedError("range partitioning keys must be plain columns")
+
+
+def range_key_columns(cb: ColumnBatch, key_exprs: Sequence[ir.Expr]
+                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(values, is NULL) of each range key over a compacted batch's live
+    rows, from one fetch of the key columns: the physical values
+    (date32 days, timestamp micros, a decimal's unscaled int64) typed,
+    with NaN as +inf, which ranks it above every number (ties at inf
+    meet in one or two adjacent partitions; the sort finishes), NULL
+    slots zero; a string's values as an object array, None where
+    NULL."""
+    from blaze_tpu_torch.batch import host_columns
+
+    idx = [_key_index(e, cb.schema) for e in key_exprs]
+    for i in idx:
+        dt = cb.schema.fields[i].dtype
+        if dt.is_wide_decimal:
+            raise NotImplementedError(
+                f"range partitioning on a {dt} key: decimal(>18) keys are "
+                "not ranked (the JAX package fails on them too)")
+    keys = ColumnBatch(Schema([cb.schema.fields[i] for i in idx]),
+                       [cb.columns[i] for i in idx], cb.num_rows)
+    rb = keys.to_arrow()
+    _, host = host_columns(rb)
+    out = []
+    for j, (vals, valid, _) in enumerate(host):
+        isnull = np.zeros(rb.num_rows, dtype=bool) if valid is None \
+            else ~valid
+        if keys.schema.fields[j].dtype.is_string_like:
+            vals = np.asarray(rb.column(j).to_pandas(), dtype=object)
+        elif np.issubdtype(vals.dtype, np.floating):
+            vals = np.where(np.isnan(vals), np.inf, vals)
+        out.append((vals, isnull))
+    return out
+
+
+def range_key_arrays(cb: ColumnBatch, key_exprs: Sequence[ir.Expr]
+                     ) -> List[np.ndarray]:
+    """The range keys of a batch as object arrays with None for NULL:
+    the sample the bounds are drawn from (the JAX package's
+    `_key_array_for_range`, so both packages draw the same bounds)."""
+    out = []
+    for vals, isnull in range_key_columns(cb, key_exprs):
+        arr = vals.astype(object)
+        arr[isnull] = None
+        out.append(arr)
+    return out
+
+
+def range_partition_ids(key_arrays: Sequence[np.ndarray],
+                        bounds: Sequence[Tuple],
+                        ascending: Sequence[bool],
+                        nulls: Optional[Sequence[np.ndarray]] = None
+                        ) -> np.ndarray:
+    """Partition id per row for RANGE partitioning: the count of
+    boundary tuples the row's key tuple exceeds lexicographically (rows
+    equal to a bound land in the lower partition, like Spark's
+    RangePartitioner binary search). NULL ranks first in the sort
+    order regardless of direction. `key_arrays` are object arrays with
+    None for NULL, or typed arrays with their NULL masks in `nulls`."""
+    import pandas as pd
+
+    n = len(key_arrays[0]) if key_arrays else 0
+    if nulls is None:
+        nulls = [np.asarray(pd.isna(a), dtype=bool) for a in key_arrays]
+    pid = np.zeros(n, dtype=np.int32)
+    for bound in bounds:
+        gt = np.zeros(n, dtype=bool)
+        eq = np.ones(n, dtype=bool)
+        for arr, isn, bv, asc in zip(key_arrays, nulls, bound, ascending):
+            if bv is None or (isinstance(bv, float) and np.isnan(bv)):
+                col_gt = ~isn  # any value outranks a NULL bound
+                col_eq = isn
+            else:
+                # NULL slots of an object array can't be compared:
+                # substitute the bound itself, then mask them out
+                safe = np.where(isn, bv, arr) if arr.dtype == object \
+                    else arr
+                with np.errstate(invalid="ignore"):
+                    raw_gt = np.asarray(safe > bv, dtype=bool)
+                    raw_lt = np.asarray(safe < bv, dtype=bool)
+                if not asc:
+                    raw_gt, raw_lt = raw_lt, raw_gt
+                col_gt = raw_gt & ~isn
+                col_eq = np.asarray(safe == bv, dtype=bool) & ~isn
+            gt = gt | (eq & col_gt)
+            eq = eq & col_eq
+        pid += gt.astype(np.int32)
+    return pid
+
+
+def compute_range_bounds(sample_df, num_partitions: int,
+                         ascending: Sequence[bool]) -> List[Tuple]:
+    """num_partitions-1 boundary tuples from a sample of key rows
+    (sampled once for the plan, the reference RangePartitioner role in
+    ArrowShuffleExchangeExec301.scala:317-357)."""
+    if len(sample_df) == 0 or num_partitions <= 1:
+        return []
+    s = sample_df.sort_values(
+        list(sample_df.columns),
+        ascending=list(ascending),
+        na_position="first",
+        kind="stable",
+    ).reset_index(drop=True)
+    n = len(s)
+    bounds = []
+    for k in range(1, num_partitions):
+        idx = min(n - 1, (k * n) // num_partitions)
+        row = tuple(
+            None if (v is None or (isinstance(v, float) and np.isnan(v)))
+            else v
+            for v in s.iloc[idx]
+        )
+        bounds.append(row)
+    return bounds
+
+
+def range_ids(cb: ColumnBatch, key_exprs: Sequence[ir.Expr],
+              bounds: Sequence[Tuple], ascending: Sequence[bool],
+              num_partitions: int) -> torch.Tensor:
+    """Range partition ids of a compacted batch on its device, int32 of
+    its capacity, `num_partitions` past `num_rows`."""
+    from blaze_tpu_torch.batch import _h2d
+
+    cols = range_key_columns(cb, key_exprs)
+    pid = np.full(cb.capacity, num_partitions, dtype=np.int32)
+    pid[:cb.num_rows] = range_partition_ids(
+        [v for v, _ in cols], bounds, ascending, [m for _, m in cols])
+    return _h2d(pid, cb.device)
+
+
 def append_parts(bufs: PartitionBuffers, rb: pa.RecordBatch,
                  offsets: np.ndarray, level: int) -> None:
     """One encoded part per non-empty partition of a scattered batch."""
@@ -224,15 +371,13 @@ class ShuffleWriterExec(PhysicalOp):
 
     def __init__(self, child: PhysicalOp, key_exprs: Sequence[ir.Expr],
                  num_partitions: int, data_file: str, index_file: str,
-                 mode: str = "hash"):
+                 mode: str = "hash",
+                 range_bounds: Optional[Sequence[Tuple]] = None,
+                 sort_ascending: Optional[Sequence[bool]] = None):
         if mode not in MODES:
             raise ValueError(f"shuffle writer mode {mode!r}")
-        if mode == "range":
-            raise NotImplementedError(
-                "range partitioning (bounds sampled at planning time) waits "
-                f"for {ROADMAP_EXCHANGE}")
-        if mode == "hash" and not key_exprs:
-            raise ValueError("hash partitioning requires keys")
+        if mode in ("hash", "range") and not key_exprs:
+            raise ValueError(f"{mode} partitioning requires keys")
         if num_partitions < 1:
             raise ValueError(f"num_partitions={num_partitions}")
         self.children = [child]
@@ -241,6 +386,13 @@ class ShuffleWriterExec(PhysicalOp):
         self.data_file = data_file
         self.index_file = index_file
         self.mode = mode
+        # range: the bounds are plan constants (sampled once for the
+        # plan), so every map task splits alike
+        self.range_bounds = list(range_bounds or []) if mode == "range" \
+            else []
+        self.sort_ascending = (
+            list(sort_ascending) if sort_ascending is not None
+            else [True] * len(key_exprs)) if mode == "range" else []
 
     @property
     def schema(self) -> Schema:
@@ -270,6 +422,9 @@ class ShuffleWriterExec(PhysicalOp):
                 if self.mode == "round_robin":
                     pids = round_robin_ids(cb, rr_next, n)
                     rr_next = (rr_next + cb.num_rows) % n
+                elif self.mode == "range":
+                    pids = range_ids(cb, self.key_exprs, self.range_bounds,
+                                     self.sort_ascending, n)
                 else:
                     pids = spark_partition_ids(cb, self.key_exprs, n)
                 rb, offsets = scatter_by_partition(cb, pids, n)

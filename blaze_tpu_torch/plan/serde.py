@@ -8,11 +8,11 @@ The wire format is the JAX package's, unchanged: TaskDefinition bytes
 from either package decode in the other. The port carries the
 parquet_scan, ipc_reader, empty_partitions, filter, project, sort,
 union, limit, hash_aggregate, hash_join, sort_merge_join (streaming or
-not), shuffle_writer (hash, single, round_robin), ipc_writer,
-rename_columns, debug and window arms, and a task's local file
-resources (the IpcReader inputs of a reduce task); every other plan
-arm, range partitioning and remote segments raise NotImplementedError
-naming the ROADMAP item that brings them.
+not), shuffle_writer (hash, single, round_robin, and range with its
+sampled bounds and sort directions), ipc_writer, rename_columns, debug
+and window arms, and a task's local file resources (the IpcReader
+inputs of a reduce task); every other plan arm and remote segments
+raise NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -392,11 +392,20 @@ def plan_from_proto(p: pb.PlanProto) -> PhysicalOp:
         )
     if kind == "shuffle_writer":
         sw = p.shuffle_writer
+        bounds = []
+        for row in sw.range_bounds:
+            vals = []
+            for lp in row.values:
+                wrap = pb.ExprProto()
+                wrap.literal.CopyFrom(lp)
+                vals.append(expr_from_proto(wrap).value)
+            bounds.append(tuple(vals))
         return ShuffleWriterExec(
             plan_from_proto(sw.input),
             [expr_from_proto(k) for k in sw.keys],
             sw.num_partitions, sw.data_file, sw.index_file,
-            _PB_TO_SHUFFLE[sw.mode])
+            _PB_TO_SHUFFLE[sw.mode], range_bounds=bounds or None,
+            sort_ascending=list(sw.sort_ascending) or None)
     if kind == "ipc_writer":
         return IpcWriterExec(plan_from_proto(p.ipc_writer.input),
                              p.ipc_writer.resource_id)
@@ -517,6 +526,17 @@ def plan_to_proto(op: PhysicalOp) -> pb.PlanProto:
         sw.data_file = op.data_file
         sw.index_file = op.index_file
         sw.mode = _SHUFFLE_TO_PB[op.mode]
+        if op.mode == "range":
+            from blaze_tpu_torch.exprs.typing import infer_dtype
+
+            sw.sort_ascending.extend(op.sort_ascending)
+            key_dtypes = [infer_dtype(e, op.children[0].schema)
+                          for e in op.key_exprs]
+            for bound in op.range_bounds:
+                row = sw.range_bounds.add()
+                for v, dt in zip(bound, key_dtypes):
+                    row.values.add().CopyFrom(
+                        expr_to_proto(ir.Literal(v, dt)).literal)
     elif isinstance(op, IpcWriterExec):
         p.ipc_writer.input.CopyFrom(plan_to_proto(op.children[0]))
         p.ipc_writer.resource_id = op.resource_id

@@ -84,6 +84,19 @@ class counting:
         return False
 
 
+def task_threads(n_tasks: int, cap: int = 4) -> int:
+    """Concurrency of a task pool (an exchange's map stage, the
+    scheduler). One process shares one card, so threads buy overlap of
+    host decode, encode and IO with the card's work, not compute.
+    BLAZE_TASK_THREADS overrides the cap (1 runs every task alone)."""
+    import os
+
+    env = os.environ.get("BLAZE_TASK_THREADS")
+    if env:
+        cap = max(1, int(env))
+    return min(cap, max(1, n_tasks))
+
+
 def _sync(what: Optional[str]) -> None:
     record("d2h_syncs")
     if what:

@@ -3,10 +3,13 @@
 Reference counterpart: the JNI entry `callNative` (exec.rs:118-328) -
 decode a TaskDefinition, build the operator tree, execute one partition,
 stream Arrow batches back, then push collected metrics. Every decoded
-tree goes through the fusion pass (`prepare_decoded_task`, as the JAX
-package's does), and runs on the context's device ("cuda" unless the
-caller asks for the CPU). There is no mesh lowering and no scan hints
-in this slice (ROADMAP 'Modules to port' items 7 and 2).
+tree goes through the fusion pass and gets the scan hints of
+planner/colprune.py, column pruning and filter pushdown
+(`prepare_decoded_task`, as the JAX package's does); a plan built in
+Python gets the pruning hints when a partition starts
+(`execute_partition`). Trees run on the context's device ("cuda"
+unless the caller asks for the CPU). There is no mesh lowering
+(ROADMAP 'Modules to port' item 7).
 
 Failure semantics follow the reference (SURVEY 5.3): operator errors are
 wrapped with task context into TaskExecutionError and propagate cleanly to
@@ -56,12 +59,17 @@ def require_device(device: torch.device) -> None:
 
 def prepare_decoded_task(decoded, ctx: ExecContext):
     """Fuse a decoded tree (planner/fuse.py: the JAX package's
-    `prepare_decoded_task` fuses every decoded task the same way) and
-    install the task's identity and file resources into the context."""
+    `prepare_decoded_task` fuses every decoded task the same way),
+    attach the scan hints, and install the task's identity and file
+    resources into the context."""
+    from blaze_tpu_torch.planner.colprune import install as install_hints
     from blaze_tpu_torch.planner.fuse import fuse_pipelines
 
     op, partition, task_id, resources = decoded
     op = fuse_pipelines(op)
+    # a freshly decoded tree: its scans are its own, so filter pushdown
+    # (not only column pruning) is safe to attach
+    install_hints(op, with_filters=True)
     ctx.partition_id = partition
     ctx.task_id = task_id
     for rid, provider in resources.items():
@@ -88,9 +96,14 @@ def execute_task(task_bytes: bytes,
 
 
 def execute_partition(op: PhysicalOp, partition: int, ctx: ExecContext):
-    """Check the device now, then return the partition's Arrow batch
+    """Check the device and attach the pruning hints now (required sets
+    only grow, so a scan shared across plans stays correct; filters are
+    for the decode path), then return the partition's Arrow batch
     stream."""
+    from blaze_tpu_torch.planner.colprune import install as install_hints
+
     require_device(ctx.device)
+    install_hints(op)
     return _drain(op, partition, ctx)
 
 

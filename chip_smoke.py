@@ -100,10 +100,10 @@ Phases, one JSON line each:
    - grace: one keyed COMPLETE GROUP BY item (131,072 keys) over all
      `--rows` rows, past max_materialize_rows, so grace buckets it
      through K4; equal to a numpy oracle; its bucket counters printed.
-   Each prints its wall, rows/s, launches, transfers and syncs; grace
-   runs once more under torch.profiler, exchange_agg and repartition
-   (whose 200 reduce tasks dominate) run once, under it. Then the
-   joins:
+   Each prints its wall, rows/s, launches, transfers and syncs;
+   exchange_agg and repartition (whose 200 reduce tasks dominate) run
+   once, under torch.profiler (grace's profiled rerun is cut for the
+   script's time since the planner slice). Then the joins:
    - join_agg: bench.py's join_agg (bench.py:970-1024) through
      execute_task: the `--rows` store_sales file probes the 131,072-row
      item dimension (i_item = arange, i_brand in [0, 4096) as bench.py
@@ -113,7 +113,8 @@ Phases, one JSON line each:
      bincount(i_brand[item]), SUM within 1e-9 relative of float64
      numpy; the join must take the dense direct table;
    - join_kr: the same with both keys times 16 (the span past 8x the
-     build rows): the fused key|row table;
+     build rows): the fused key|row table (not profiled again since the
+     planner slice, for the script's time);
    - join_sorted: `--grouped-rows` rows against the dimension with
      every row twice: the sorted core, K4's `hashes` on both sides;
      COUNT and SUM twice numpy's;
@@ -184,7 +185,7 @@ Phases, one JSON line each:
      must hold.
    Each prints its wall, rows/s, device calls, syncs, d2h_fetches and
    the string tier's counters (`strings` lines) and runs once more under
-   torch.profiler.
+   torch.profiler (but tpcds_brand, since the planner slice).
    Then decimal128 (`decimal_phase`), price as TPC-DS's decimal(7, 2)
    (bench.py's float price rounded to unscaled cents):
    - the int128 primitives over 2^20 random limb pairs with the edge
@@ -209,8 +210,35 @@ Phases, one JSON line each:
      numpy's lexsort of the limbs.
    Each prints its wall, rows/s, device busy ms, idle share, H2D copies
    and syncs (a batch on the scans) and K1-K4 launches (`decimal`
-   lines) and runs once more under torch.profiler. The shape of every
-   kernel launch on these paths is noted.
+   lines) and runs once more under torch.profiler.
+   Then the planner tier (`planner_phase`), each task a `planner` line
+   with its wall, native and host nodes, map tasks, reduce partitions,
+   shuffle and broadcast bytes, each scan's decoded columns and pushed
+   conjuncts, `pushdown_filtered_rows` and K1-K4 launches:
+   - plan_join_agg: bench.py's join_agg as a PlanSpec (`join_agg_spec`:
+     the `--rows` fact file as 4 FileRange partitions, the item
+     dimension, a bhj join, a COMPLETE aggregate) through
+     `convert_plan`, `insert_exchanges` (8 partitions) and
+     `run_plan_parallel` (the 4 map tasks on threads): every node
+     native, `qty` not decoded, equal to check_join_agg's oracle; run
+     once more under device-only profiling (the phase's one profile);
+   - plan_fallback: the same spec at 1,048,576 rows with the hash join
+     off: the join on the host engine, the spec's tags equal
+     PLAN_FALLBACK_TAGS (the JAX package's, pinned by
+     tests/test_torch_planner.py), equal to the oracle;
+   - range_sort: ORDER BY price DESC, item over a 16-partition range
+     ShuffleExchangeExec of the 4 partitions, a SortExec a partition:
+     row for row numpy's stable lexsort, each partition within its
+     sampled bounds;
+   - tpcds_exchange: tests/test_tpcds_exchange.py on the card, its 99
+     EXCHANGE_QUERIES (smj) through insert_exchanges at 4 partitions
+     at 200,000 rows and its 6 PARQUET_QUERIES over parquet files with
+     the scan hints installed with filters, against the pandas oracles
+     (q67 and q86 may hold by rank tolerance).
+   The q6 task of the path phase decodes 2 of its 3 columns (its line
+   also times q6 without hints, with pruning only and with pruning and
+   pushdown, in turns, warm). The shape
+   of every kernel launch on these paths is noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
    phase 3, at every launch shape of phase 4 that phase 3 did not check;
    then K1, K2 and K3 timed at the most launched of those shapes (K2 at
@@ -1421,13 +1449,15 @@ def run_counted(torch, fn, kernels):
     return out, wall, launches, transfers
 
 
-def run_task(torch, blob, kernels):
-    """One task through execute_task on cuda, counted (run_counted)."""
+def run_task(torch, blob, kernels, ctx=None):
+    """One task through execute_task on cuda, counted (run_counted);
+    `ctx` (a cuda ExecContext) to read the task's metrics after."""
     from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.runtime.executor import execute_task
 
     return run_counted(
-        torch, lambda: list(execute_task(blob, ExecContext(device="cuda"))),
+        torch, lambda: list(execute_task(
+            blob, ctx if ctx is not None else ExecContext(device="cuda"))),
         kernels)
 
 
@@ -1446,8 +1476,10 @@ def profile_run(torch, fn, task: str, wall: float):
     wall gives the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the line reads device events alone, and the
+    # host ops of a long task cost the profiler's post-processing more
+    # than the task (join_kr's 5 s run took 53 s to profile with them)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1511,6 +1543,7 @@ def path_phase(torch, rows: int, seed: int, kernels):
     import pyarrow.compute as pc
 
     from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.plan.serde import task_to_proto
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -1521,16 +1554,25 @@ def path_phase(torch, rows: int, seed: int, kernels):
     write_s = time.perf_counter() - t0
     results = {}
     try:
-        # q6: filter -> project -> keyless SUM / COUNT(*)
+        # q6: filter -> project -> keyless SUM / COUNT(*), decoded with
+        # the scan hints (item is never read; the filter's conjuncts
+        # drop rows on the host)
         blob = task_to_proto(
             q6_plan(ParquetScanExec([[FileRange(path)]]), True), 0)
-        out, wall, launches, transfers = run_task(torch, blob, kernels)
+        q6_ctx = ExecContext(device="cuda")
+        out, wall, launches, transfers = run_task(torch, blob, kernels,
+                                                  q6_ctx)
         exp_sum, _ = q6_oracle(qty, price)
         got_sum, got_n = check_q6(out, qty, price, "q6")
         if launches["masked_stats"] <= 0:
             raise AssertionError("q6 did not launch K1 masked_stats")
         fusion = fusion_counts(transfers, rows)
         check_fused("q6", fusion)
+        decoded = scan_columns(q6_ctx)
+        if decoded != (2, 3):
+            raise AssertionError(f"q6 decoded {decoded[0]} of {decoded[1]} "
+                                 "columns, not 2 of 3")
+        in_turns = q6_hint_walls(torch, blob, kernels, qty, price)
         results["q6"] = {"launches": launches, "wall_s": wall}
         emit({"phase": "path", "task": "q6", "rows": rows,
               "parquet_write_s": write_s, "wall_s": wall,
@@ -1538,7 +1580,10 @@ def path_phase(torch, rows: int, seed: int, kernels):
               "sum": got_sum, "count": got_n, "numpy_sum": exp_sum,
               "rel_err": abs(got_sum - exp_sum) / max(abs(exp_sum), 1.0),
               "launches": launches, "fusion": fusion,
-              "transfers": transfers})
+              "columns_decoded": decoded[0], "columns_in_schema": decoded[1],
+              "pushdown_filtered_rows": q6_ctx.metrics.counters.get(
+                  "pushdown_filtered_rows", 0),
+              "hints_in_turns": in_turns, "transfers": transfers})
         profile_task(torch, blob, "q6", wall)
 
         # select: filter -> project -> compacted Arrow batches
@@ -1602,6 +1647,48 @@ def path_phase(torch, rows: int, seed: int, kernels):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return results
+
+
+def scan_columns(ctx):
+    """(columns decoded, columns in the scans' schemas) of a one-scan,
+    one-partition task, from its metrics."""
+    c = ctx.metrics.counters
+    return c.get("columns_decoded", 0), c.get("columns_in_schema", 0)
+
+
+def q6_hint_walls(torch, blob, kernels, qty, price):
+    """q6 without the scan hints (as before the planner slice: every
+    column read, the device filter sees every row), with column pruning
+    only, and with pruning and pushdown (as decoded), in turns, twice,
+    all warm. Each run checked against numpy and gated on one graph
+    replay and one H2D copy a batch; returns each variant's walls and
+    the columns and rows its scan decoded."""
+    from blaze_tpu_torch.ops import ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.runtime.executor import decode_task, \
+        execute_partition
+
+    variants = ("none", "pruning", "pruning_pushdown")
+    out = {v: [] for v in variants}
+    for v in variants * 2:
+        ctx = ExecContext(device="cuda")
+        op, part = decode_task(blob, ctx)
+        for o in _ops(op):
+            if isinstance(o, ParquetScanExec):
+                if v == "none":
+                    o._hint_required = None
+                if v != "pruning_pushdown":
+                    o._hint_filters = ()
+        task = f"q6 with hints {v}"
+        res, wall, _, transfers = run_counted(
+            torch, lambda: list(execute_partition(op, part, ctx)), kernels)
+        check_q6(res, qty, price, task)
+        check_fused(task, fusion_counts(transfers, len(qty)))
+        decoded = scan_columns(ctx)
+        out[v].append({"wall_s": wall, "columns_decoded": decoded[0],
+                       "pushdown_filtered_rows": ctx.metrics.counters.get(
+                           "pushdown_filtered_rows", 0)})
+    return out
 
 
 def q6_oracle(qty, price):
@@ -2059,7 +2146,8 @@ def exchange_phase(torch, rows: int, seed: int, kernels):
                   external_agg_rebuckets=gc.get("external_agg_rebuckets", 0),
                   external_agg_hot_buckets=gc.get(
                       "external_agg_hot_buckets", 0))
-        profile_run(torch, lambda: run_stage(torch, [g_blob]), "grace", wall)
+        # grace's profiled rerun is cut for the script's time (PERF.md
+        # section 4)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return results
@@ -2151,9 +2239,10 @@ def join_ctx(max_rows: int):
 
 
 def join_task_line(torch, task, blob, rows, kernels, core, check,
-                   max_rows, **extra):
+                   max_rows, profile=True, **extra):
     """Run one join task through execute_task, check it, gate its core
-    and kernels, print its path line and profile it once more."""
+    and kernels, print its path line and (`profile`) profile it once
+    more."""
     import pyarrow as pa
 
     from blaze_tpu_torch.runtime.executor import execute_task
@@ -2175,7 +2264,8 @@ def join_task_line(torch, task, blob, rows, kernels, core, check,
               syncs_per_batch=transfers.get("d2h_syncs", 0) / batches,
               join_syncs={k: v for k, v in transfers.items()
                           if k.startswith("d2h_syncs.join")}, **extra)
-    profile_run(torch, run, task, wall)
+    if profile:
+        profile_run(torch, run, task, wall)
     return {"launches": launches, "wall_s": wall}
 
 
@@ -2366,7 +2456,10 @@ def join_phase(torch, rows: int, sorted_rows_: int, seed: int, kernels):
                 lambda t, task=task, n=n, times=times: check_join_agg(
                     t, item[:n], price[:n], brands, task, times),
                 max_rows=times * rows, build_rows=times * ITEMS,
-                key_scale=scale, parquet_write_s=write_s)
+                key_scale=scale, parquet_write_s=write_s,
+                # join_kr's profiled rerun is cut for the script's time
+                # (PERF.md section 4)
+                profile=task != "join_kr")
         if results["join_sorted"]["launches"]["murmur3_hashes"] <= 0:
             raise AssertionError("join_sorted did not launch K4 hashes")
 
@@ -3172,11 +3265,12 @@ def strings_phase(torch, rows: int, seed: int, kernels, device="cuda"):
     def scan(p):
         return ParquetScanExec([[FileRange(p)]])
 
-    def counted(task, blob, n, **extra):
+    def counted(task, blob, n, profile=True, **extra):
         def run():
             return list(execute_task(blob, ctx()))
         out, wall, launches, transfers = run_counted(torch, run, kernels)
-        prof = profile_run(torch, run, task, wall)
+        prof = profile_run(torch, run, task, wall) if profile else {
+            "device_calls": "not measured", "idle_share": "not measured"}
         strings_line(task, n, wall, launches, transfers, prof, **extra)
         results[task] = {"launches": launches, "wall_s": wall}
         return pa.Table.from_batches(out) if out else None
@@ -3201,7 +3295,10 @@ def strings_phase(torch, rows: int, seed: int, kernels, device="cuda"):
                       task_to_proto(tpcds_brand_plan(scan(fact_path),
                                                      scan(item_path)), 0),
                       rows, item_rows=ITEMS, row_groups=ROW_GROUPS,
-                      parquet_write_s=write_s)
+                      parquet_write_s=write_s,
+                      # its profiled rerun is cut for the script's time
+                      # (PERF.md section 4)
+                      profile=False)
         err, n_out = check_brand(got, item, qty, price, items)
         emit({"phase": "strings_check", "task": "tpcds_brand",
               "oracle": "pyarrow Table.join, group_by, sort_by",
@@ -3866,6 +3963,465 @@ def decimal_phase(torch, rows: int, grouped_rows: int, seed: int, kernels,
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: the planner tier
+# ---------------------------------------------------------------------------
+
+PLAN_SPLITS = 4  # FileRange partitions of the planner tasks' fact scan
+PLAN_PARTITIONS = 8  # plan_join_agg's reduce partitions
+FALLBACK_ROWS = 1 << 20
+RANGE_PARTITIONS = 16
+# plan_fallback's spec tags, as the JAX package's convert_plan sets them
+# (tests/test_torch_planner.py pins them against it): the aggregate, the
+# two projections and the fact scan native; the join (enable_bhj=False)
+# and the dimension scan under it (the scan-parent heuristic) host
+PLAN_FALLBACK_TAGS = {"native": 4, "host": 2}
+
+
+def planner_package():
+    """The port's planner, IR and FileRange: what the spec functions take
+    (tests/test_torch_planner.py passes the JAX package's too)."""
+    import types
+
+    import blaze_tpu_torch.planner as planner
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.ops import FileRange
+
+    return types.SimpleNamespace(planner=planner, ir=ir, FileRange=FileRange)
+
+
+def byte_splits(file_range, path: str, n: int):
+    """`path` as n byte ranges, one a partition: Spark's splits, where a
+    row group belongs to the range that holds its midpoint."""
+    size = os.path.getsize(path)
+    step = -(-size // n)
+    return [[file_range(path, i * step, min(step, size - i * step))]
+            for i in range(n)]
+
+
+def join_agg_spec(P, fact_groups, dim_path: str):
+    """bench.py's join_agg (bench.py:970-1024) as a PlanSpec: store_sales
+    (its item and price) joined to the item dimension (the build side)
+    in a broadcast hash join, then per brand SUM(price), COUNT(*) in a
+    COMPLETE aggregate. `P` holds a package's planner, IR and
+    FileRange (planner_package)."""
+    S, ir = P.planner, P.ir
+    col = ir.Col
+    fact = S.ProjectSpec(children=[S.ScanSpec(file_groups=fact_groups)],
+                         exprs=[(col("item"), "item"),
+                                (col("price"), "price")])
+    dim = S.ScanSpec(file_groups=[[P.FileRange(dim_path)]])
+    join = S.JoinSpec(children=[dim, fact], kind="bhj",
+                      left_keys=["i_item"], right_keys=["item"],
+                      join_type="inner")
+    return S.AggSpec(
+        children=[S.ProjectSpec(children=[join],
+                                exprs=[(col("i_brand"), "brand"),
+                                       (col("price"), "price")])],
+        keys=[(col("brand"), "brand")],
+        aggs=[(ir.AggExpr(ir.AggFn.SUM, col("price")), "rev"),
+              (ir.AggExpr(ir.AggFn.COUNT_STAR, None), "cnt")],
+        mode="complete")
+
+
+def spec_tags(spec):
+    """(node type, convertible tag) of every node, preorder."""
+    out = [(type(spec).__name__, spec.convertible)]
+    for c in spec.children:
+        out += spec_tags(c)
+    return out
+
+
+def tag_counts(spec):
+    tags = [t for _, t in spec_tags(spec)]
+    return {"native": tags.count(True), "host": tags.count(False)}
+
+
+def _ops(op):
+    """Every operator of a built tree once (shared subtrees once)."""
+    seen, out, stack = set(), [], [op]
+    while stack:
+        o = stack.pop()
+        if id(o) not in seen:
+            seen.add(id(o))
+            out.append(o)
+            stack.extend(o.children)
+    return out
+
+
+def op_nodes(op):
+    """Native operators and planned host nodes (HostFallbackExec) of a
+    built tree."""
+    host = sum(type(o).__name__ == "HostFallbackExec" for o in _ops(op))
+    return {"native": len(_ops(op)) - host, "host": host}
+
+
+def scan_reads(op):
+    """Each parquet scan of a built tree: its partitions, the columns it
+    decodes under its hints, its schema's columns and its pushed
+    conjuncts."""
+    from blaze_tpu_torch.ops import ParquetScanExec
+
+    out = []
+    for o in _ops(op):
+        if isinstance(o, ParquetScanExec):
+            cols = o.projection or [f.name for f in o.schema]
+            filters = getattr(o, "_hint_filters", ())
+            out.append({"partitions": o.partition_count,
+                        "decoded": o._read_plan(cols, filters)[0],
+                        "schema": cols,
+                        "pushed": [[n, c.name, v] for n, c, v in
+                                   getattr(o, "_hint_filters", ())]})
+    return out
+
+
+def planner_line(task: str, rows: int, wall: float, launches, transfers,
+                 op, counters, **extra):
+    emit({"phase": "planner", "task": task, "rows": rows, "wall_s": wall,
+          "rows_per_s": rows / wall, "nodes": op_nodes(op),
+          "map_tasks": counters.get("exchange_map_tasks", 0),
+          "reduce_partitions": op.partition_count,
+          "shuffle_bytes_written": counters.get("shuffle_bytes_written", 0),
+          "broadcast_bytes": counters.get("broadcast_bytes", 0),
+          "scans": scan_reads(op),
+          "pushdown_filtered_rows": counters.get("pushdown_filtered_rows",
+                                                 0),
+          "launches": launches, "transfers": transfers, **extra})
+
+
+def planned_run(build, held=None, device="cuda", parallelism: int = 4):
+    """A function that builds a plan (`build()` -> op) and runs it
+    through the scheduler on the card (or the CPU, to rehearse), keeping
+    its op and context in `held`."""
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.runtime.scheduler import run_plan_parallel
+
+    held = {} if held is None else held
+
+    def run():
+        op = held["op"] = build()
+        held["ctx"] = ExecContext(device=device)
+        return run_plan_parallel(op, ctx=held["ctx"],
+                                 parallelism=parallelism)
+
+    return run
+
+
+def run_planned(torch, build, kernels, device="cuda"):
+    """planned_run, counted: (table, op, its context, wall, launches,
+    transfers)."""
+    held = {}
+    table, wall, launches, transfers = run_counted(
+        torch, planned_run(build, held, device), kernels)
+    return table, held["op"], held["ctx"], wall, launches, transfers
+
+
+def exchange_partition_rows(ex, ctx):
+    """Rows of each reduce partition of a run exchange, read back from
+    its files."""
+    from blaze_tpu_torch.io.ipc import read_file_segment
+
+    return [sum(rb.num_rows for seg in ex.segments_for((r, r + 1), ctx)
+                for rb in read_file_segment(seg.path, seg.offset,
+                                            seg.length))
+            for r in range(ex.num_partitions)]
+
+
+def check_range_sort(table, item, qty, price, bounds, sizes):
+    """The partitions, in order, equal numpy's stable lexsort by price
+    descending, item ascending, row for row; each partition's rows
+    (`sizes` of them) lie after the bound before it and at or before its
+    own."""
+    order = np.lexsort((item, -price.astype(np.float64)))
+    for name, exp in (("price", price), ("item", item), ("qty", qty)):
+        if not np.array_equal(table.column(name).to_numpy(), exp[order]):
+            raise AssertionError(f"range_sort: column {name} differs from "
+                                 "numpy's lexsort order")
+    p = table.column("price").to_numpy()
+    it = table.column("item").to_numpy()
+
+    def after(sl, b):  # rows after bound b in (price DESC, item ASC)
+        bp, bi = b
+        return (p[sl] < bp) | ((p[sl] == bp) & (it[sl] > bi))
+
+    if sum(sizes) != len(p):
+        raise AssertionError(f"range_sort: partitions hold {sum(sizes)} "
+                             f"rows of {len(p)}")
+    start = 0
+    for r, n in enumerate(sizes):
+        sl = slice(start, start + n)
+        if (r and not after(sl, bounds[r - 1]).all()) or (
+                r < len(bounds) and after(sl, bounds[r]).any()):
+            raise AssertionError(f"range_sort: partition {r} holds a row "
+                                 "outside its bounds")
+        start += n
+
+
+def tpcds_exchange_check(rows: int, device: str, work: str):
+    """tests/test_tpcds_exchange.py on the card: its EXCHANGE_QUERIES
+    (smj flavour) through insert_exchanges at its N_EXCHANGE_PARTITIONS
+    over in-memory tables, then its PARQUET_QUERIES over parquet files
+    of the same tables with the scan hints installed with filters
+    (pruning and pushdown), each against the pandas oracles of
+    tests/test_tpcds_queries.py (all loaded by the source rewrite of
+    tests/torch_tpcds_support.py); q67 and q86 where they differ by the
+    rank-tolerant comparisons. Returns (exchange queries equal, their
+    rank-tolerant ones, parquet queries equal, totals over the queries:
+    native and host nodes, map tasks, shuffle and broadcast bytes,
+    pushed-down rows, and the parquet scans' columns decoded and in
+    their schemas)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_tpcds_support
+
+    from blaze_tpu_torch.config import EngineConfig, get_config, set_config
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.planner.colprune import install
+    from blaze_tpu_torch.planner.distribute import insert_exchanges
+    from blaze_tpu_torch.runtime.executor import run_plan
+
+    lists = torch_tpcds_support.exchange_queries()
+    support, queries = torch_tpcds_support.load(rows)
+    tolerant = torch_tpcds_support.rank_tolerant(queries)
+    old = get_config()
+    set_config(EngineConfig(
+        device=device, batch_size=max(rows, 1 << 20),
+        shape_buckets=(256, 1024, 4096, 16384, 65536, 262144, 1 << 20,
+                       max(rows, 1 << 20))))
+    passed, by_rank, failed, pq_passed = [], {}, {}, []
+    totals = dict.fromkeys((
+        "native", "host", "exchange_map_tasks", "shuffle_bytes_written",
+        "broadcast_bytes", "pushdown_filtered_rows",
+        "parquet_columns_decoded", "parquet_columns_in_schema"), 0)
+    try:
+        tables = support.gen_tables()
+        mem = support.scans_of(tables)
+        files = {}
+        for name, df in tables.items():
+            files[name] = os.path.join(work, f"tpcds_{name}.parquet")
+            pq.write_table(pa.Table.from_pandas(df, preserve_index=False),
+                           files[name], row_group_size=1 << 16)
+        pq_scans = {name: (lambda path=path: ParquetScanExec(
+            [[FileRange(path)]])) for name, path in files.items()}
+
+        def run(q, scans, parquet):
+            shuffle = os.path.join(work, f"shuffle_{q}")
+            os.makedirs(shuffle, exist_ok=True)
+            try:
+                plan = insert_exchanges(
+                    support.QUERIES[q](scans, "smj"),
+                    lists.N_EXCHANGE_PARTITIONS, shuffle_dir=shuffle)
+                if parquet:
+                    install(plan, with_filters=True)
+                    for s in scan_reads(plan):
+                        totals["parquet_columns_decoded"] += len(
+                            s["decoded"])
+                        totals["parquet_columns_in_schema"] += len(
+                            s["schema"])
+                for k, v in op_nodes(plan).items():
+                    totals[k] += v
+                ctx = ExecContext()
+                out = run_plan(plan, ctx).to_pandas()
+                for k in ("exchange_map_tasks", "shuffle_bytes_written",
+                          "broadcast_bytes", "pushdown_filtered_rows"):
+                    totals[k] += ctx.metrics.counters.get(k, 0)
+                return out
+            finally:
+                shutil.rmtree(shuffle, ignore_errors=True)
+
+        for q in lists.EXCHANGE_QUERIES:
+            got = run(q, mem, False)
+            exp = queries.ORACLES[q](tables)
+            exp.columns = list(got.columns)
+            try:
+                queries.assert_frames_match(got, exp, f"{q}/shuffle")
+                passed.append(q)
+            except AssertionError as e:
+                if q not in lists.RANK_TOLERANT:
+                    failed[q] = repr(e)[:300]
+                    continue
+                try:
+                    if len(got) != len(exp):
+                        raise AssertionError(
+                            f"{len(got)} rows, oracle {len(exp)}")
+                    if q == "q67":
+                        tolerant._assert_rank_tolerant_q67(
+                            got, queries.q67_rolled_frame(tables))
+                    else:
+                        tolerant._assert_rank_tolerant_q86(
+                            got, queries.q86_rolled_frame(tables))
+                except AssertionError as e2:
+                    failed[q] = repr(e2)[:300]
+                    continue
+                by_rank[q] = ("differs from the oracle's frame at "
+                              + repr(e)[:120] + "; every sum within 1e-6 "
+                              "and every rank achievable "
+                              "(_assert_rank_tolerant_" + q + ")")
+        for q in lists.PARQUET_QUERIES:
+            got = run(q, pq_scans, True)
+            exp = queries.ORACLES[q](tables)
+            exp.columns = list(got.columns)
+            try:
+                queries.assert_frames_match(got, exp, f"{q}/parquet-shuffle")
+                pq_passed.append(q)
+            except AssertionError as e:
+                failed[q + "/parquet"] = repr(e)[:300]
+    finally:
+        set_config(old)
+    if failed:
+        raise AssertionError(f"tpcds_exchange: {len(failed)} queries differ "
+                             f"from their oracles: {failed}")
+    return passed, by_rank, pq_passed, totals
+
+
+def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
+    """The planner tier on the card: PlanSpecs through convert_plan,
+    insert_exchanges and run_plan_parallel (plan_join_agg,
+    plan_fallback), a range exchange under a per-partition sort
+    (range_sort), and the TPC-DS queries through the exchanges
+    (tpcds_exchange)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec, SortExec
+    from blaze_tpu_torch.ops.sort import SortKey
+    from blaze_tpu_torch.parallel import ShuffleExchangeExec
+    from blaze_tpu_torch.planner import ConvertStrategy, convert_plan
+    from blaze_tpu_torch.planner.distribute import insert_exchanges
+
+    work = os.path.join(REPO, "build", "chip_smoke_planner")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    P = planner_package()
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        fact_path = os.path.join(work, "store_sales.parquet")
+        item, qty, price = write_store_sales(fact_path, rows, seed)
+        brands = item_brands(rows, seed)
+        dim_path = os.path.join(work, "item.parquet")
+        pq.write_table(pa.table({"i_item": np.arange(ITEMS, dtype=np.int32),
+                                 "i_brand": brands}), dim_path)
+        small_path = os.path.join(work, "store_sales_small.parquet")
+        write_parquet(small_path, item[:FALLBACK_ROWS], qty[:FALLBACK_ROWS],
+                      price[:FALLBACK_ROWS])
+        write_s = time.perf_counter() - t0
+
+        # plan_join_agg: every node native, 4 map tasks in threads
+        tags = {}
+
+        def build_join_agg(path=fact_path, strategy=None, key="join_agg"):
+            def build():
+                spec = join_agg_spec(P, byte_splits(FileRange, path,
+                                                    PLAN_SPLITS), dim_path)
+                op = convert_plan(spec, strategy)
+                tags[key] = (tag_counts(spec), spec_tags(spec))
+                return insert_exchanges(
+                    op, PLAN_PARTITIONS,
+                    shuffle_dir=os.path.join(work, "shuffle_" + key))
+            return build
+
+        table, op, ctx, wall, launches, transfers = run_planned(
+            torch, build_join_agg(), kernels, device)
+        counters = ctx.metrics.counters
+        err = check_join_agg(table, item, price, brands, "plan_join_agg")
+        nodes = op_nodes(op)
+        fact_scan = [s for s in scan_reads(op) if "qty" in s["schema"]]
+        if tags["join_agg"][0]["host"] or nodes["host"]:
+            raise AssertionError(f"plan_join_agg: host nodes {tags}")
+        if len(fact_scan) != 1 or "qty" in fact_scan[0]["decoded"]:
+            raise AssertionError(f"plan_join_agg: qty decoded: {fact_scan}")
+        if counters.get("exchange_map_tasks") != PLAN_SPLITS:
+            raise AssertionError(f"plan_join_agg: {counters}")
+        for name in ("murmur3", "segment_reduce"):
+            if launches[name] <= 0:
+                raise AssertionError(f"plan_join_agg did not launch {name}")
+        results["plan_join_agg"] = {"launches": launches, "wall_s": wall}
+        planner_line("plan_join_agg", rows, wall, launches, transfers, op,
+                     counters, spec_tags=tags["join_agg"][0],
+                     sum_max_rel_err=err, parquet_write_s=write_s,
+                     threads=4)
+        # the phase's one profiled run: device activity only
+        counted_profiled(torch, planned_run(build_join_agg(
+            key="join_agg_profiled"), device=device), "plan_join_agg",
+            kernels)
+
+        # plan_fallback: the join on the host engine (enable_bhj=False)
+        table, op, ctx, wall, launches, transfers = run_planned(
+            torch, build_join_agg(small_path, ConvertStrategy(
+                enable_bhj=False), "fallback"), kernels, device)
+        counters = ctx.metrics.counters
+        err = check_join_agg(table, item[:FALLBACK_ROWS],
+                             price[:FALLBACK_ROWS], brands, "plan_fallback")
+        host_nodes = [o for o in _ops(op)
+                      if type(o).__name__ == "HostFallbackExec"]
+        if tags["fallback"][0] != PLAN_FALLBACK_TAGS or len(host_nodes) != 1 \
+                or type(host_nodes[0].node).__name__ != "JoinSpec":
+            raise AssertionError(f"plan_fallback: tags {tags['fallback']}, "
+                                 f"host nodes {host_nodes}")
+        results["plan_fallback"] = {"launches": launches, "wall_s": wall}
+        planner_line("plan_fallback", FALLBACK_ROWS, wall, launches,
+                     transfers, op, counters,
+                     spec_tags=tags["fallback"][0],
+                     pinned_tags=PLAN_FALLBACK_TAGS,
+                     tags=tags["fallback"][1], sum_max_rel_err=err)
+
+        # range_sort: ORDER BY price DESC, item over a range exchange
+        box = {}
+
+        def build_range():
+            scan = ParquetScanExec(byte_splits(FileRange, fact_path,
+                                               PLAN_SPLITS))
+            ex = box["ex"] = ShuffleExchangeExec(
+                scan, [Col("price"), Col("item")], RANGE_PARTITIONS,
+                mode="range", shuffle_dir=os.path.join(work, "range"),
+                sort_ascending=[False, True])
+            return SortExec(ex, [SortKey(Col("price"), False, False),
+                                 SortKey(Col("item"))])
+
+        table, op, ctx, wall, launches, transfers = run_planned(
+            torch, build_range, kernels, device)
+        counters = ctx.metrics.counters
+        bounds = box["ex"].range_bounds(ctx)
+        sizes = exchange_partition_rows(box["ex"], ctx)
+        check_range_sort(table, item, qty, price, bounds, sizes)
+        results["range_sort"] = {"launches": launches, "wall_s": wall}
+        planner_line("range_sort", rows, wall, launches, transfers, op,
+                     counters, bounds=[[float(b[0]), int(b[1])]
+                                       for b in bounds],
+                     partition_rows=sizes,
+                     check="partitions in order equal numpy's stable "
+                           "lexsort (price DESC, item), row for row; each "
+                           "partition's keys within its bounds")
+
+        # tpcds_exchange: the repo's exchange suite on the card
+        def tpcds():
+            return tpcds_exchange_check(TPCDS99_ROWS, device, work)
+
+        (passed, by_rank, pq_passed, totals), wall, launches, transfers = \
+            run_counted(torch, tpcds, kernels)
+        n_ex = len(passed) + len(by_rank)
+        if totals["host"]:
+            raise AssertionError(f"tpcds_exchange: host nodes {totals}")
+        results["tpcds_exchange"] = {"launches": launches, "wall_s": wall}
+        emit({"phase": "planner", "task": "tpcds_exchange",
+              "rows": TPCDS99_ROWS, "wall_s": wall, "flavour": "smj",
+              "exchange_queries": n_ex, "equal_to_oracle": len(passed),
+              "rank_tolerant": by_rank, "parquet_queries": len(pq_passed),
+              "totals_over_queries": totals,
+              "oracle": "pandas oracles of tests/test_tpcds_queries.py; q67 "
+                        "and q86 where they differ: the rank-tolerant "
+                        "comparisons of tests/test_tpcds_exchange.py",
+              "launches": launches, "transfers": transfers})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def time_tree(torch, tree: str, rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
@@ -4146,6 +4702,7 @@ def main() -> int:
                                  kernels))
         res.update(decimal_phase(torch, args.rows, args.grouped_rows,
                                  args.seed, kernels))
+        res.update(planner_phase(torch, args.rows, args.seed, kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check, then timed at the most
@@ -4210,7 +4767,8 @@ def main() -> int:
     summary = []
     slice_tasks = [t for t in res if t.startswith(("window", "sort_",
                                                    "union_limit", "tpcds",
-                                                   "dec_"))]
+                                                   "dec_", "plan_",
+                                                   "range_sort"))]
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
          "blaze_tpu/ops/kernels/stats_pallas.py:75", "q6", k1_err),

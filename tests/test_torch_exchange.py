@@ -243,13 +243,32 @@ def _writer_inputs():
     return arrow_batches(10, WRITER_SIZES)
 
 
+# range: (k ASC NULLS FIRST, x DESC) against bounds that put NULL k, a
+# NaN x (ranked above every number) and ties on a bound to the test
+RANGE_BOUNDS = [(None, 50.0), (-200, float("inf")), (-200, 10.0), (0, 99.0),
+                (250, 0.5), (499, None)]
+RANGE_ASC = [True, False]
+
+
+def _writer_keys(mode, col):
+    if mode == "hash":
+        return [col("k"), col("l")]
+    return [col("k"), col("x")] if mode == "range" else []
+
+
+def _range_args(mode):
+    if mode != "range":
+        return {}
+    return {"range_bounds": RANGE_BOUNDS, "sort_ascending": RANGE_ASC}
+
+
 def port_writer(mode, data, index, child=None, parts=PARTS):
     if child is None:
         cbs = [ColumnBatch.from_arrow(rb, device="cpu")
                for rb in _writer_inputs()]
         child = MemoryScanExec([cbs] * (MAP_PARTITION + 1), cbs[0].schema)
-    keys = [Col("k"), Col("l")] if mode == "hash" else []
-    return ShuffleWriterExec(child, keys, parts, data, index, mode)
+    return ShuffleWriterExec(child, _writer_keys(mode, Col), parts, data,
+                             index, mode, **_range_args(mode))
 
 
 @pytest.fixture(scope="module")
@@ -258,24 +277,24 @@ def written(tmp_path_factory):
     the same batches, as map partition MAP_PARTITION."""
     d = tmp_path_factory.mktemp("writer")
     out = {}
-    for mode in ("hash", "single", "round_robin"):
+    for mode in ("hash", "single", "round_robin", "range"):
         pd_, pi = str(d / f"port_{mode}.data"), str(d / f"port_{mode}.index")
         op = port_writer(mode, pd_, pi)
         ctx = ExecContext(device="cpu")
         assert list(op.execute(MAP_PARTITION, ctx)) == []
         jbs = [JBatch.from_arrow(rb) for rb in _writer_inputs()]
         jd, ji = str(d / f"jax_{mode}.data"), str(d / f"jax_{mode}.index")
-        keys = [JCol("k"), JCol("l")] if mode == "hash" else []
         jop = JShuffleWriter(
             jax_ops.MemoryScanExec([jbs] * (MAP_PARTITION + 1),
                                    jbs[0].schema),
-            keys, PARTS, jd, ji, mode)
+            _writer_keys(mode, JCol), PARTS, jd, ji, mode,
+            **_range_args(mode))
         list(jop.execute(MAP_PARTITION, JaxContext()))
         out[mode] = (pd_, pi, jd, ji, ctx.metrics.counters)
     return out
 
 
-@pytest.mark.parametrize("mode", ["hash", "single", "round_robin"])
+@pytest.mark.parametrize("mode", ["hash", "single", "round_robin", "range"])
 def test_shuffle_writer_matches_jax(written, mode):
     pd_, pi, jd, ji, counters = written[mode]
     assert_files_equal(pd_, pi, jd, ji)
@@ -355,13 +374,31 @@ def test_empty_map_output_writes_zero_index(tmp_path):
     assert (tmp_path / "e.data").read_bytes() == b""
 
 
-def test_writer_refuses_range_and_keyless_hash():
+def test_writer_refuses_range_and_keyless_hash(tmp_path):
+    """Range and hash partitioning need keys; a decimal(>18) range key
+    is refused, where the JAX package's writer fails too."""
     cbs = [ColumnBatch.from_arrow(arrow_batches(12, [4])[0], device="cpu")]
     scan = MemoryScanExec([cbs], cbs[0].schema)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShuffleWriterExec(scan, [Col("k")], 4, "d", "i", "range")
+    with pytest.raises(ValueError):
+        ShuffleWriterExec(scan, [], 4, "d", "i", "range")
     with pytest.raises(ValueError):
         ShuffleWriterExec(scan, [], 4, "d", "i", "hash")
+    rb = pa.record_batch({"w": pa.array([10 ** 30, None, -5],
+                                        pa.decimal128(38, 2))})
+    wide = MemoryScanExec([[ColumnBatch.from_arrow(rb, device="cpu")]],
+                          ColumnBatch.from_arrow(rb, device="cpu").schema)
+    op = ShuffleWriterExec(wide, [Col("w")], 2, str(tmp_path / "d"),
+                           str(tmp_path / "i"), "range",
+                           range_bounds=[(0,)])
+    with pytest.raises(NotImplementedError, match="decimal"):
+        list(op.execute(0, ExecContext(device="cpu")))
+    jb = JBatch.from_arrow(rb)
+    jop = JShuffleWriter(jax_ops.MemoryScanExec([[jb]], jb.schema),
+                         [JCol("w")], 2, str(tmp_path / "jd"),
+                         str(tmp_path / "ji"), "range",
+                         range_bounds=[(0,)])
+    with pytest.raises(Exception):
+        list(jop.execute(0, JaxContext()))
 
 
 # ---------------------------------------------------------------------------
@@ -467,10 +504,16 @@ def test_remote_segments_and_range_writers_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         serde.task_to_proto(IpcReaderExec("in", _reader_schema(), 1), 0,
                             file_resources={"in": [object()]})
+    # a range writer decodes now, with its bounds and directions, and
+    # encodes back to the JAX package's bytes
     rng_w = JShuffleWriter(jr, [JCol("k")], 4, "d", "i", "range",
-                           range_bounds=[(1,), (5,), (9,)])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serde.task_from_proto(jax_serde.task_to_proto(rng_w, 0))
+                           range_bounds=[(1,), (5,), (9,)],
+                           sort_ascending=[False])
+    blob = jax_serde.task_to_proto(rng_w, 0)
+    op = serde.task_from_proto(blob)[0]
+    assert (op.mode, op.range_bounds, op.sort_ascending) == (
+        "range", [(1,), (5,), (9,)], [False])
+    assert serde.task_to_proto(op, 0) == blob
 
 
 def test_decode_task_installs_resources():

@@ -107,8 +107,9 @@ def _both(blob):
     """Run one blob through both packages. The JAX side runs without
     host filter pushdown: pyarrow's compare drops NaN > x rows during
     decode, where the device predicate keeps them (Spark orders NaN
-    above every value; ROADMAP section 3 records this). The port has no
-    pushdown, so its filter always sees every row."""
+    above every value; ROADMAP section 3 records this). The port pushes
+    the same conjuncts with Spark's order: a NaN row passes `>` on the
+    host too, and the device filter decides it."""
     got = list(execute_task(blob, ExecContext(device="cpu")))
     exp = list(jax_execute_task(blob, JaxContext(
         config=JaxConfig(host_filter_pushdown=False), mesh_mode="off")))
@@ -180,17 +181,40 @@ def test_port_blob_runs_in_jax(tmp_path):
 
 
 def test_unported_plan_node_raises(tmp_path):
-    """Every plan arm decodes now; range partitioning is what the port
-    still refuses, naming its ROADMAP item."""
+    """Every plan arm decodes, range partitioning included: a JAX range
+    map task writes the same partitions in the port. What the port
+    still refuses is a remote file segment, naming its ROADMAP item."""
     from blaze_tpu.ops import ShuffleWriterExec as JShuffleWriter
+    from blaze_tpu.ops.ipc_reader import IpcReaderExec as JIpcReader
+    from blaze_tpu.runtime.transport import RemoteSegment
+
+    from blaze_tpu_torch.io.ipc import partition_ranges, read_file_segment
 
     path = _write(tmp_path / "ss.parquet", rows=100)
+    tables = []
+    for who, run in (("jax", lambda b: list(jax_execute_task(
+            b, JaxContext(config=JaxConfig())))),
+                     ("port", lambda b: list(execute_task(
+                         b, ExecContext(device="cpu"))))):
+        data, index = str(tmp_path / f"{who}.d"), str(tmp_path / f"{who}.i")
+        blob = jax_task_to_proto(
+            JShuffleWriter(JSort(JScan([[JRange(path)]]),
+                                 [JSortKey(JCol("qty"))]),
+                           [JCol("qty")], 2, data, index, mode="range",
+                           range_bounds=[(5,)], sort_ascending=[True]), 0)
+        assert run(blob) == []
+        tables.append([pa.Table.from_batches(list(
+            read_file_segment(data, o, n))) for o, n in
+            partition_ranges(index)])
+    for got, exp in zip(*reversed(tables)):
+        assert_arrow_equal(got, exp)
+    assert tables[1][0].column("qty").to_numpy().max() <= 5
+    schema = tables[1][0].schema
+    from blaze_tpu.types import from_arrow_schema as jax_from_arrow_schema
+
     blob = jax_task_to_proto(
-        JShuffleWriter(JSort(JScan([[JRange(path)]]),
-                             [JSortKey(JCol("qty"))]),
-                       [JCol("qty")], 2, str(tmp_path / "d"),
-                       str(tmp_path / "i"), mode="range",
-                       range_bounds=[(5,)], sort_ascending=[True]), 0)
+        JIpcReader("in", jax_from_arrow_schema(schema), 1), 0,
+        file_resources={"in": [RemoteSegment("h", 1, "/p", 0, 8)]})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         execute_task(blob, ExecContext(device="cpu"))
 

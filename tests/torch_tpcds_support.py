@@ -90,3 +90,27 @@ def rank_tolerant(queries: types.ModuleType) -> types.SimpleNamespace:
     ns = {"np": np, "pd": pd}
     exec(compile(code, path, "exec"), ns)
     return types.SimpleNamespace(**{n: ns[n] for n in RANK_TOLERANT})
+
+
+EXCHANGE_NAMES = ("EXCHANGE_QUERIES", "RANK_TOLERANT", "N_EXCHANGE_PARTITIONS",
+                  "PARQUET_QUERIES")
+
+
+def exchange_queries() -> types.SimpleNamespace:
+    """The query lists of tests/test_tpcds_exchange.py, read from its
+    source without running it (it imports the JAX package):
+    EXCHANGE_QUERIES, RANK_TOLERANT, N_EXCHANGE_PARTITIONS and
+    PARQUET_QUERIES."""
+    import ast
+
+    path = os.path.join(_HERE, "test_tpcds_exchange.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                getattr(node.targets[0], "id", None) in EXCHANGE_NAMES:
+            found[node.targets[0].id] = ast.literal_eval(node.value)
+    if set(found) != set(EXCHANGE_NAMES):
+        raise RuntimeError(f"{path}: expected {EXCHANGE_NAMES}")
+    return types.SimpleNamespace(**found)
