@@ -47,9 +47,13 @@ class EngineConfig:
     ipc_compression_level: int = 1
     # torch device the engine computes on ("cuda", "cuda:1", "cpu").
     device: str = "cuda"
-    # Apply the filter conjuncts planner/colprune pushes into a parquet
-    # scan on the host, before the copy (the JAX package's knob).
-    host_filter_pushdown: bool = True
+    # Drop rows on the host, before the copy, by the filter conjuncts
+    # planner/colprune pushes into a parquet scan (the JAX package's
+    # knob, on there). Off: the device filter re-applies the whole
+    # predicate anyway, a copy pads to its shape bucket, and on q6 the
+    # host pass made the task slower on the card (PERF.md section 7).
+    # The pushed conjuncts skip row groups by their statistics either way.
+    host_filter_pushdown: bool = False
     # Join core (the JAX package's config.join_core): "scatter" builds
     # a hash table of the build relation (a dense direct table, a fused
     # key|row table or the generic table), demoted to the sorted core

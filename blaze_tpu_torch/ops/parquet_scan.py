@@ -19,8 +19,10 @@ The planner's hints (planner/colprune.py, installed by the executor)
 narrow the read: a column no ancestor reads is neither decoded nor
 copied (a shared zero placeholder keeps its schema position), and the
 `col <cmp> literal` conjuncts pushed from the filter above the scan
-skip row groups by their statistics and drop rows on the host before
-the copy. The device filter still applies the whole predicate. Both
+skip row groups by their statistics and, with
+`EngineConfig.host_filter_pushdown`, drop rows on the host before the
+copy (`_apply_host_filters`). The device filter still applies the
+whole predicate. Both
 keep Spark's order, where NaN is above every value: a NaN row passes a
 pushed `>` or `>=`, and float statistics never prove that no row
 passes one (parquet's min and max leave NaN out).
@@ -113,9 +115,10 @@ class ParquetScanExec(PhysicalOp):
         cfg = ctx.config
         cols = self.projection or [f.name for f in self._schema]
         staging = Staging() if ctx.device.type == "cuda" else None
-        filters = list(getattr(self, "_hint_filters", ()) or ()) \
-            if cfg.host_filter_pushdown else []
-        read_names, keep_names, present = self._read_plan(cols, filters)
+        filters = list(getattr(self, "_hint_filters", ()) or ())
+        row_filters = filters if cfg.host_filter_pushdown else []
+        read_names, keep_names, present = self._read_plan(cols,
+                                                          row_filters)
         ctx.metrics.add("columns_decoded", len(read_names))
         ctx.metrics.add("columns_in_schema", len(cols))
 
@@ -131,9 +134,9 @@ class ParquetScanExec(PhysicalOp):
                 ):
                     ctx.metrics.add("input_rows", rb.num_rows)
                     ctx.metrics.add("input_batches", 1)
-                    if filters:
+                    if row_filters:
                         before = rb.num_rows
-                        rb = _apply_host_filters(rb, filters)
+                        rb = _apply_host_filters(rb, row_filters)
                         ctx.metrics.add("pushdown_filtered_rows",
                                         before - rb.num_rows)
                     if rb.num_rows == 0:
@@ -185,8 +188,7 @@ class ParquetScanExec(PhysicalOp):
         for i in range(md.num_row_groups):
             rg = md.row_group(i)
             if fr.length > 0:
-                start = rg.column(0).file_offset
-                mid = start + rg.total_byte_size // 2
+                mid = row_group_midpoint(rg)
                 if not (fr.start <= mid < fr.start + fr.length):
                     continue
             if self.pruning_predicate is not None and not _may_match(
@@ -198,6 +200,20 @@ class ParquetScanExec(PhysicalOp):
                 continue
             out.append(i)
         return out
+
+
+def row_group_midpoint(rg) -> int:
+    """The byte midpoint of a row group in its file, which decides the
+    split that owns it (Spark's rule): its first page (the dictionary
+    page where a column has one) plus half of its compressed bytes. A
+    column chunk's `file_offset` is no position (pyarrow's writer leaves
+    it 0), and `total_byte_size` counts uncompressed bytes: the JAX
+    package's rule on those two gives every row group to the first
+    split."""
+    cols = [rg.column(i) for i in range(rg.num_columns)]
+    start = min(c.dictionary_page_offset if c.has_dictionary_page
+                else c.data_page_offset for c in cols)
+    return start + sum(c.total_compressed_size for c in cols) // 2
 
 
 def _apply_host_filters(rb, filters):

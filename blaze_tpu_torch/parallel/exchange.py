@@ -20,12 +20,14 @@ ROADMAP 'Modules to port' item 9's cluster and transport tier.
 
 from __future__ import annotations
 
+import logging
 import os
 import tempfile
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 from blaze_tpu_torch.batch import ColumnBatch
+from blaze_tpu_torch.errors import classify, retry_action
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.io.ipc import coalesce, partition_ranges
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
@@ -33,6 +35,8 @@ from blaze_tpu_torch.ops.ipc_reader import FileSegment
 from blaze_tpu_torch.ops.ipc_writer import collect_ipc
 from blaze_tpu_torch.ops.shuffle_writer import ShuffleWriterExec
 from blaze_tpu_torch.types import Schema
+
+log = logging.getLogger("blaze_tpu_torch.exchange")
 
 
 def _device_batches(arrow: Iterator, ctx: ExecContext
@@ -191,8 +195,7 @@ class ShuffleExchangeExec(PhysicalOp):
                     d, f"shuffle_{id(self):x}_{map_id}_0.data")
                 index = os.path.join(
                     d, f"shuffle_{id(self):x}_{map_id}_0.index")
-                last_err = None
-                for _ in range(self.MAX_TASK_ATTEMPTS):
+                for attempt in range(self.MAX_TASK_ATTEMPTS):
                     try:
                         # a range map task's first attempt resumes the
                         # sample pass's iterator; a retry pops nothing
@@ -210,10 +213,20 @@ class ShuffleExchangeExec(PhysicalOp):
                         for _ in writer.execute(map_id, ctx):
                             pass
                         return (data, index)
-                    except Exception as e:  # retry like a Spark task
-                        last_err = e
+                    except Exception as e:
+                        # a Spark task's retry, classified as the
+                        # scheduler's: only a transient failure runs
+                        # again, and each retry is logged and counted
+                        if retry_action(classify(e), attempt,
+                                        self.MAX_TASK_ATTEMPTS,
+                                        False) != "retry":
+                            raise
                         ctx.metrics.add("task_retries", 1)
-                raise last_err  # type: ignore[misc]
+                        log.warning("map task %d failed transiently "
+                                    "(attempt %d): %s; retrying",
+                                    map_id, attempt + 1, e)
+                raise AssertionError("unreachable: attempt loop fell "
+                                     "through")
 
             # map tasks run concurrently like Spark executor threads:
             # host decode and encode overlap the card's work

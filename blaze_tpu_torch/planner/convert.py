@@ -7,8 +7,9 @@ Reference behavior being reproduced (SURVEY 2.2, 3.1):
 - per-op enable gates (spark.blaze.enable.*, BlazeConverters.scala:76-91)
 - exchanges and scans always convert when possible
   (BlazeConvertStrategy.scala:118-123)
-- conversion errors fall back per node, never failing the query
-  (tryConvert, BlazeConverters.scala:137-157)
+- a node whose dry run fails falls back per node (tryConvert,
+  BlazeConverters.scala:137-157); a node the dry run passed converts
+  or raises
 - join conditions become a native Filter above the join
   (BlazeConverters.scala:244-301)
 - host<->native boundaries get explicit bridges: HostFallbackExec wraps
@@ -274,16 +275,13 @@ def _smj_inputs_sorted(node: "S.JoinSpec") -> bool:
 
 
 def _build(node: S.PlanSpec, strategy: ConvertStrategy) -> PhysicalOp:
+    """A node the tags mark as host becomes a HostFallbackExec; a node
+    they mark as native converts or raises. (The JAX package also falls
+    back when the conversion of a native-tagged node raises; here that
+    would send the node to pandas on the host unseen.)"""
     if not node.convertible:
         return HostFallbackExec(node)
-    try:
-        return _convert_native(node, strategy)
-    except Exception as e:  # tryConvert: per-node fallback
-        log.warning(
-            "conversion of %s failed, falling back to host: %s",
-            type(node).__name__, e,
-        )
-        return HostFallbackExec(node)
+    return _convert_native(node, strategy)
 
 
 def _child(node: S.PlanSpec, strategy: ConvertStrategy, i: int = 0
@@ -386,7 +384,6 @@ def _convert_native(node: S.PlanSpec, strategy: ConvertStrategy
         )
     if isinstance(node, S.WindowSpec):
         from blaze_tpu_torch.exprs.ir import Col
-        from blaze_tpu_torch.ops.sort import SortKey
         from blaze_tpu_torch.ops.window import WindowExec, WindowFn
 
         child = _child(node, strategy)

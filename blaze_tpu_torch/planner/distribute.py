@@ -14,7 +14,10 @@ shuffles (tpcds.yml:139-147). This rule is that planner step engine-side:
 - COMPLETE hash aggregates split into PARTIAL -> hash exchange on the
   group keys -> FINAL (keyless: single-partition exchange), the
   reference's NativeHashAggregateExec mode mapping
-  (NativeHashAggregateExec.scala:98-161);
+  (NativeHashAggregateExec.scala:98-161); so does a keyless one that
+  the fusion pass made a carry under HostFinalAggExec, when it reads
+  more than one partition (the JAX package's pass leaves that one
+  whole, and each partition then gives its own row);
 - a global Limit(Sort(...)) root coalesces partitions below the sort so
   top-N stays global.
 
@@ -41,6 +44,7 @@ from blaze_tpu_torch.ops import (
     SortMergeJoinExec,
 )
 from blaze_tpu_torch.ops.base import PhysicalOp
+from blaze_tpu_torch.ops.fused import HostFinalAggExec
 from blaze_tpu_torch.ops.streaming_smj import StreamingSortMergeJoinExec
 from blaze_tpu_torch.ops.union import CoalescePartitionsExec
 from blaze_tpu_torch.ops.window import WindowExec
@@ -160,8 +164,35 @@ def _rewrite(op: PhysicalOp, n: int, shuffle_dir,
             aggs=[(AggExpr(a.fn, None), name) for a, name in op.aggs],
             mode=AggMode.FINAL,
         )
+    elif isinstance(op, HostFinalAggExec) and \
+            op.children[0].partition_count > 1:
+        new = _split_fused_complete(op, shuffle_dir)
     seen[id(op)] = new
     return new
+
+
+def _split_fused_complete(op, shuffle_dir) -> PhysicalOp:
+    """A keyless COMPLETE aggregate that the fusion pass already turned
+    into HostFinalAggExec over a carry reads one partition; over several
+    it splits as the unfused one does: the carry as the PARTIAL of each
+    partition (its state row stays on the device), a single-partition
+    exchange, and the FINAL."""
+    from blaze_tpu_torch.ops.fused import FusedAggregateExec
+
+    state = op.children[0]
+    if not isinstance(state, FusedAggregateExec):
+        raise NotImplementedError(
+            f"a keyless aggregate over {type(state).__name__} reads one "
+            "partition; coalesce its input first")
+    partial = FusedAggregateExec(state.pipeline, state.agg)
+    partial.children = state.children
+    exchange = ShuffleExchangeExec(partial, [], 1, mode="single",
+                                   shuffle_dir=shuffle_dir)
+    return HashAggregateExec(
+        exchange, keys=[],
+        aggs=[(AggExpr(a.fn, None), name) for a, name in op.template.aggs],
+        mode=AggMode.FINAL,
+    )
 
 
 def estimate_rows(op: PhysicalOp) -> int:

@@ -187,6 +187,8 @@ def _read_range(fr, projection) -> pd.DataFrame:
     (The JAX package's host engine reads the whole file per range.)"""
     import pyarrow.parquet as pq
 
+    from blaze_tpu_torch.ops.parquet_scan import row_group_midpoint
+
     path = fr.path if hasattr(fr, "path") else fr
     columns = list(projection) if projection else None
     if not getattr(fr, "length", 0):
@@ -195,9 +197,8 @@ def _read_range(fr, projection) -> pd.DataFrame:
     md = pf.metadata
     groups = []
     for i in range(md.num_row_groups):
-        rg = md.row_group(i)
-        mid = rg.column(0).file_offset + rg.total_byte_size // 2
-        if fr.start <= mid < fr.start + fr.length:
+        if fr.start <= row_group_midpoint(md.row_group(i)) \
+                < fr.start + fr.length:
             groups.append(i)
     return pf.read_row_groups(groups, columns=columns).to_pandas()
 

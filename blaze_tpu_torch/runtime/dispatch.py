@@ -87,13 +87,7 @@ class counting:
 def task_threads(n_tasks: int, cap: int = 4) -> int:
     """Concurrency of a task pool (an exchange's map stage, the
     scheduler). One process shares one card, so threads buy overlap of
-    host decode, encode and IO with the card's work, not compute.
-    BLAZE_TASK_THREADS overrides the cap (1 runs every task alone)."""
-    import os
-
-    env = os.environ.get("BLAZE_TASK_THREADS")
-    if env:
-        cap = max(1, int(env))
+    host decode, encode and IO with the card's work, not compute."""
     return min(cap, max(1, n_tasks))
 
 
@@ -164,31 +158,38 @@ def capture(fn: Callable[[], object], device,
     the graph), `prepare` (if given) gets that warm-up result on the
     caller's stream - where a caller sizes the graph's output tensors -
     then fn is captured on the side stream. The capture checks only
-    this thread's calls: the scan's prefetch thread keeps copying on
-    the default stream meanwhile. A failure raises; no caller falls
-    back to running eagerly."""
+    this thread's calls: the scan's prefetch thread, and other tasks'
+    threads, keep copying, launching and replaying on their streams
+    meanwhile. One capture runs at a time in the process: entering
+    torch.cuda.graph synchronises the whole device, which CUDA refuses
+    while another thread's stream is capturing. A failure raises; no
+    caller falls back to running eagerly."""
     import torch
 
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        warm = fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    if prepare is not None:
-        prepare(warm)
-    del warm
-    side.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
-    launches: List[Callable[[], None]] = []
-    _tls.capture = launches
-    try:
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            out = fn()
-    finally:
-        _tls.capture = None
+    with _capture_lock:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm = fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        if prepare is not None:
+            prepare(warm)
+        del warm
+        side.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        launches: List[Callable[[], None]] = []
+        _tls.capture = launches
+        try:
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            _tls.capture = None
     record("graph_captures")
     return graph, out, launches
+
+
+_capture_lock = threading.Lock()
 
 
 class GraphCache:

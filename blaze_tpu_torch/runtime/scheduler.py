@@ -13,10 +13,13 @@ Failure semantics (blaze_tpu_torch/errors.py taxonomy):
   TRANSIENT           retried up to max_attempts with exponential
                       backoff + jitter (immediate re-runs hammered the
                       same flaky resource and burned budget in bursts)
-  RESOURCE_EXHAUSTED  degraded: the partition re-executes through the
-                      pandas host engine (planner/host_engine.py) -
-                      the native->Spark fallback analog; the metric
-                      tree records `degraded_partitions`
+  RESOURCE_EXHAUSTED  on the CPU, degraded: the partition re-executes
+                      through the pandas host engine
+                      (planner/host_engine.py) - the native->Spark
+                      fallback analog; the metric tree records
+                      `degraded_partitions` and `degraded_rows`. On
+                      the card it fails the plan: work never moves
+                      to the host after a failure on the device
   PLAN_INVALID /      fail fast, zero retries - deterministic failures
   INTERNAL            don't get cheaper the second time
   CANCELLED           cooperative unwind, never counted as failure
@@ -42,11 +45,11 @@ import logging
 import random
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import pyarrow as pa
 
-from blaze_tpu_torch.errors import ErrorClass, classify, retry_action
+from blaze_tpu_torch.errors import classify, retry_action
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.runtime.executor import (
     TaskExecutionError,
@@ -78,33 +81,22 @@ def run_plan_parallel(
     max_attempts: int = 3,
     cancel: Optional[threading.Event] = None,
     retry_backoff_s: float = 0.05,
-    degrade_to_host: bool = True,
-    on_attempt: Optional[Callable[[dict], None]] = None,
 ) -> pa.Table:
     """Execute every partition on a thread pool and collect one table.
 
     `cancel` lets an embedder (the serving tier) abort the whole plan
     cooperatively. Fail-fast uses a separate INTERNAL event so a task
-    failure never mutates the caller's (possibly shared) event.
-    `on_attempt` observes every failed attempt as a dict
-    {partition, attempt, error_class, error, action} - an embedder's
-    hook into the failure journal."""
+    failure never mutates the caller's (possibly shared) event."""
     ctx = ctx or ExecContext()
     abort = threading.Event()  # internal: first-failure fail-fast
+    # a device task never degrades to the host engine: the failure
+    # surfaces instead of moving the work off the card unseen
+    can_degrade = ctx.device.type != "cuda"
 
     def cancelled() -> bool:
         return abort.is_set() or (
             cancel is not None and cancel.is_set()
         )
-
-    def note(p: int, attempt: int, ec: ErrorClass, e: BaseException,
-             action: str) -> None:
-        if on_attempt is not None:
-            on_attempt({
-                "partition": p, "attempt": attempt,
-                "error_class": ec.value, "error": str(e)[:300],
-                "action": action,
-            })
 
     def degrade(p: int, cause: BaseException) -> List[pa.RecordBatch]:
         """RESOURCE_EXHAUSTED: re-run the partition on the host engine
@@ -157,14 +149,12 @@ def run_plan_parallel(
                     )
                     ctx.metrics.add("output_batches", -len(out))
                 ec = classify(e)
-                action = retry_action(
-                    ec, attempt, max_attempts, degrade_to_host
-                )
+                action = retry_action(ec, attempt, max_attempts,
+                                      can_degrade)
                 if action == "cancel":
                     raise PlanCancelled(
                         f"partition {p} cancelled in-task"
                     ) from e
-                note(p, attempt, ec, e, action)
                 if action == "degrade":
                     return degrade(p, e)
                 if action == "fail":

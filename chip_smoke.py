@@ -214,7 +214,8 @@ Phases, one JSON line each:
    Then the planner tier (`planner_phase`), each task a `planner` line
    with its wall, native and host nodes, map tasks, reduce partitions,
    shuffle and broadcast bytes, each scan's decoded columns and pushed
-   conjuncts, `pushdown_filtered_rows` and K1-K4 launches:
+   conjuncts, `pushdown_filtered_rows`, its task retries and degraded
+   partitions and rows (each must be 0) and K1-K4 launches:
    - plan_join_agg: bench.py's join_agg as a PlanSpec (`join_agg_spec`:
      the `--rows` fact file as 4 FileRange partitions, the item
      dimension, a bhj join, a COMPLETE aggregate) through
@@ -222,6 +223,12 @@ Phases, one JSON line each:
      `run_plan_parallel` (the 4 map tasks on threads): every node
      native, `qty` not decoded, equal to check_join_agg's oracle; run
      once more under device-only profiling (the phase's one profile);
+   - plan_q6: q6 as a PlanSpec (`q6_spec`) over the same 4 partitions
+     through the same three calls: the keyless carry a map task on
+     threads, a single exchange, the FINAL; 0 host nodes, 2 of 3
+     columns decoded, equal to numpy, one graph replay and one H2D
+     copy a scan batch while the other tasks' threads capture, replay
+     and copy;
    - plan_fallback: the same spec at 1,048,576 rows with the hash join
      off: the join on the host engine, the spec's tags equal
      PLAN_FALLBACK_TAGS (the JAX package's, pinned by
@@ -1555,8 +1562,8 @@ def path_phase(torch, rows: int, seed: int, kernels):
     results = {}
     try:
         # q6: filter -> project -> keyless SUM / COUNT(*), decoded with
-        # the scan hints (item is never read; the filter's conjuncts
-        # drop rows on the host)
+        # the scan hints (item is never read; the host row filter is off
+        # by default, so the device filter drops every row)
         blob = task_to_proto(
             q6_plan(ParquetScanExec([[FileRange(path)]]), True), 0)
         q6_ctx = ExecContext(device="cuda")
@@ -1668,10 +1675,13 @@ def q6_hint_walls(torch, blob, kernels, qty, price):
     from blaze_tpu_torch.runtime.executor import decode_task, \
         execute_partition
 
+    from blaze_tpu_torch.config import EngineConfig
+
     variants = ("none", "pruning", "pruning_pushdown")
     out = {v: [] for v in variants}
     for v in variants * 2:
-        ctx = ExecContext(device="cuda")
+        ctx = ExecContext(device="cuda", config=EngineConfig(
+            host_filter_pushdown=v == "pruning_pushdown"))
         op, part = decode_task(blob, ctx)
         for o in _ops(op):
             if isinstance(o, ParquetScanExec):
@@ -4024,6 +4034,21 @@ def join_agg_spec(P, fact_groups, dim_path: str):
         mode="complete")
 
 
+def q6_spec(P, fact_groups):
+    """q6 (q6_plan) as a PlanSpec over store_sales' FileRange groups:
+    filter, project, keyless COMPLETE SUM(rev) and COUNT(*)."""
+    S, ir = P.planner, P.ir
+    col = ir.Col
+    filt = S.FilterSpec(children=[S.ScanSpec(file_groups=fact_groups)],
+                        predicate=(col("price") > 50.0) & (col("qty") < 8))
+    proj = S.ProjectSpec(children=[filt], exprs=[
+        (col("price") * col("qty").cast(ir.DataType.float32()), "rev")])
+    return S.AggSpec(children=[proj], keys=[],
+                     aggs=[(ir.AggExpr(ir.AggFn.SUM, col("rev")), "t"),
+                           (ir.AggExpr(ir.AggFn.COUNT_STAR, None), "n")],
+                     mode="complete")
+
+
 def spec_tags(spec):
     """(node type, convertible tag) of every node, preorder."""
     out = [(type(spec).__name__, spec.convertible)]
@@ -4060,13 +4085,15 @@ def scan_reads(op):
     """Each parquet scan of a built tree: its partitions, the columns it
     decodes under its hints, its schema's columns and its pushed
     conjuncts."""
+    from blaze_tpu_torch.config import get_config
     from blaze_tpu_torch.ops import ParquetScanExec
 
     out = []
     for o in _ops(op):
         if isinstance(o, ParquetScanExec):
             cols = o.projection or [f.name for f in o.schema]
-            filters = getattr(o, "_hint_filters", ())
+            filters = getattr(o, "_hint_filters", ()) \
+                if get_config().host_filter_pushdown else ()
             out.append({"partitions": o.partition_count,
                         "decoded": o._read_plan(cols, filters)[0],
                         "schema": cols,
@@ -4075,8 +4102,39 @@ def scan_reads(op):
     return out
 
 
+def check_planned_fused(task: str, counts) -> None:
+    """A fused keyless aggregate's PARTIAL over PLAN_SPLITS map tasks on
+    threads: one graph replay and one H2D copy a scan batch, no batch
+    run op by op; the FINAL's read of the map tasks' state rows adds
+    at most two copies a map task. A task holds its graph for its whole
+    stream, so two captures or more mean that tasks held graphs at once
+    and captured while another thread replayed and copied."""
+    n = counts["batches"]
+    if (counts["graph_replays"] != n or counts["graph_eager_batches"]
+            or not n <= counts["h2d_copies"] <= n + 2 * PLAN_SPLITS
+            or counts["graph_captures"] < 2):
+        raise AssertionError(f"{task}: {counts} - expected {n} graph "
+                             f"replays, {n} H2D copies and at most "
+                             f"{2 * PLAN_SPLITS} more, no eager batch, "
+                             "2 captures or more")
+
+
+FAILURE_COUNTERS = ("task_retries", "degraded_partitions", "degraded_rows")
+
+
+def check_no_retries(task: str, counters) -> None:
+    """A planner task on the card retried no task and degraded no
+    partition to the host engine (the scheduler refuses that on the
+    card; a retry would hide a fault)."""
+    bad = {k: counters.get(k, 0) for k in FAILURE_COUNTERS
+           if counters.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{task}: {bad}")
+
+
 def planner_line(task: str, rows: int, wall: float, launches, transfers,
                  op, counters, **extra):
+    check_no_retries(task, counters)
     emit({"phase": "planner", "task": task, "rows": rows, "wall_s": wall,
           "rows_per_s": rows / wall, "nodes": op_nodes(op),
           "map_tasks": counters.get("exchange_map_tasks", 0),
@@ -4086,6 +4144,7 @@ def planner_line(task: str, rows: int, wall: float, launches, transfers,
           "scans": scan_reads(op),
           "pushdown_filtered_rows": counters.get("pushdown_filtered_rows",
                                                  0),
+          **{k: counters.get(k, 0) for k in FAILURE_COUNTERS},
           "launches": launches, "transfers": transfers, **extra})
 
 
@@ -4189,13 +4248,15 @@ def tpcds_exchange_check(rows: int, device: str, work: str):
     old = get_config()
     set_config(EngineConfig(
         device=device, batch_size=max(rows, 1 << 20),
+        host_filter_pushdown=True,
         shape_buckets=(256, 1024, 4096, 16384, 65536, 262144, 1 << 20,
                        max(rows, 1 << 20))))
     passed, by_rank, failed, pq_passed = [], {}, {}, []
     totals = dict.fromkeys((
         "native", "host", "exchange_map_tasks", "shuffle_bytes_written",
         "broadcast_bytes", "pushdown_filtered_rows",
-        "parquet_columns_decoded", "parquet_columns_in_schema"), 0)
+        "parquet_columns_decoded", "parquet_columns_in_schema",
+        *FAILURE_COUNTERS), 0)
     try:
         tables = support.gen_tables()
         mem = support.scans_of(tables)
@@ -4226,7 +4287,8 @@ def tpcds_exchange_check(rows: int, device: str, work: str):
                 ctx = ExecContext()
                 out = run_plan(plan, ctx).to_pandas()
                 for k in ("exchange_map_tasks", "shuffle_bytes_written",
-                          "broadcast_bytes", "pushdown_filtered_rows"):
+                          "broadcast_bytes", "pushdown_filtered_rows",
+                          *FAILURE_COUNTERS):
                     totals[k] += ctx.metrics.counters.get(k, 0)
                 return out
             finally:
@@ -4279,7 +4341,7 @@ def tpcds_exchange_check(rows: int, device: str, work: str):
 
 def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
     """The planner tier on the card: PlanSpecs through convert_plan,
-    insert_exchanges and run_plan_parallel (plan_join_agg,
+    insert_exchanges and run_plan_parallel (plan_join_agg, plan_q6,
     plan_fallback), a range exchange under a per-partition sort
     (range_sort), and the TPC-DS queries through the exchanges
     (tpcds_exchange)."""
@@ -4350,6 +4412,36 @@ def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
             key="join_agg_profiled"), device=device), "plan_join_agg",
             kernels)
 
+        # plan_q6: q6 as a PlanSpec over the 4 partitions, its carry a
+        # map task on threads: CUDA graphs captured and replayed while
+        # other tasks' threads capture, replay and copy
+        def build_q6():
+            spec = q6_spec(P, byte_splits(FileRange, fact_path, PLAN_SPLITS))
+            op = convert_plan(spec)
+            tags["q6"] = tag_counts(spec)
+            return insert_exchanges(op, PLAN_PARTITIONS,
+                                    shuffle_dir=os.path.join(work, "q6"))
+
+        table, op, ctx, wall, launches, transfers = run_planned(
+            torch, build_q6, kernels, device)
+        counters = ctx.metrics.counters
+        got_sum, got_n = check_q6(table.to_batches(), qty, price, "plan_q6")
+        fusion = fusion_counts(transfers, rows)
+        (q6_scan,) = scan_reads(op)
+        if tags["q6"]["host"] or op_nodes(op)["host"] or \
+                sorted(q6_scan["decoded"]) != ["price", "qty"]:
+            raise AssertionError(f"plan_q6: tags {tags['q6']}, nodes "
+                                 f"{op_nodes(op)}, scan {q6_scan}")
+        check_planned_fused("plan_q6", fusion)
+        if counters.get("exchange_map_tasks") != PLAN_SPLITS:
+            raise AssertionError(f"plan_q6: {counters}")
+        if launches["masked_stats"] <= 0:
+            raise AssertionError("plan_q6 did not launch K1 masked_stats")
+        results["plan_q6"] = {"launches": launches, "wall_s": wall}
+        planner_line("plan_q6", rows, wall, launches, transfers, op,
+                     counters, spec_tags=tags["q6"], sum=got_sum,
+                     count=got_n, fusion=fusion, threads=PLAN_SPLITS)
+
         # plan_fallback: the join on the host engine (enable_bhj=False)
         table, op, ctx, wall, launches, transfers = run_planned(
             torch, build_join_agg(small_path, ConvertStrategy(
@@ -4407,6 +4499,7 @@ def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
         n_ex = len(passed) + len(by_rank)
         if totals["host"]:
             raise AssertionError(f"tpcds_exchange: host nodes {totals}")
+        check_no_retries("tpcds_exchange", totals)
         results["tpcds_exchange"] = {"launches": launches, "wall_s": wall}
         emit({"phase": "planner", "task": "tpcds_exchange",
               "rows": TPCDS99_ROWS, "wall_s": wall, "flavour": "smj",

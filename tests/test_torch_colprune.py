@@ -323,10 +323,13 @@ def _unpruned(plan):
 
 
 def test_e2e_pruned_equals_unpruned(pq_file):
+    from blaze_tpu_torch.config import EngineConfig
+
     path, tbl = pq_file
     P = package(False)
     blob = task_to_proto(agg_filter_project(P, path)[0], 0)
-    ctx = _cpu()
+    ctx = ExecContext(device="cpu", config=EngineConfig(
+        device="cpu", host_filter_pushdown=True))
     got = list(execute_task(blob, ctx))[0]
     base = run_plan(_unpruned(agg_filter_project(P, path)[0]), _cpu())
     df = tbl.to_pandas()
@@ -441,6 +444,25 @@ def test_nan_rows_follow_spark(nan_file, op, pushdown):
     if pushdown:
         assert ctx.metrics.counters["pushdown_filtered_rows"] == \
             len(b) - exp
+    else:
+        assert "pushdown_filtered_rows" not in ctx.metrics.counters
+
+
+@pytest.mark.parametrize("op", ["GT", "GTE", "LT"])
+def test_host_filter_follows_spark_nan_order(op):
+    """The host filter alone, on a batch with NaN and NULL rows: a NaN
+    passes `>` and `>=` and fails `<` (Spark's order), a NULL fails
+    every comparison."""
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.ops.parquet_scan import _apply_host_filters
+
+    b = np.array([0.9, np.nan, 0.1, 0.5, np.nan, 0.7], np.float32)
+    null = np.array([False, False, False, False, True, True])
+    rb = pa.record_batch([pa.array(b, mask=null)], names=["b"])
+    out = _apply_host_filters(rb, [("b", getattr(ir.Op, op), 0.5)])
+    keep = SPARK_CMP[op](b, np.float32(0.5)) & ~null
+    assert out.column(0).null_count == 0
+    np.testing.assert_array_equal(out.column(0).to_numpy(), b[keep])
 
 
 def test_decimal_literal_not_pushable(tmp_path):

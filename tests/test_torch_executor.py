@@ -35,6 +35,7 @@ from blaze_tpu.plan.serde import task_to_proto as jax_task_to_proto
 from blaze_tpu.runtime.executor import execute_task as jax_execute_task
 from blaze_tpu.types import DataType as JDataType
 
+from blaze_tpu_torch.config import EngineConfig
 from blaze_tpu_torch.exprs.ir import AggExpr, AggFn, Col
 from blaze_tpu_torch.ops import (
     AggMode,
@@ -109,8 +110,11 @@ def _both(blob):
     decode, where the device predicate keeps them (Spark orders NaN
     above every value; ROADMAP section 3 records this). The port pushes
     the same conjuncts with Spark's order: a NaN row passes `>` on the
-    host too, and the device filter decides it."""
-    got = list(execute_task(blob, ExecContext(device="cpu")))
+    host too, and the device filter decides it. (The port's pushdown is
+    off by default; it is turned on here to hold its NaN rule.)"""
+    got = list(execute_task(blob, ExecContext(
+        device="cpu",
+        config=EngineConfig(device="cpu", host_filter_pushdown=True))))
     exp = list(jax_execute_task(blob, JaxContext(
         config=JaxConfig(host_filter_pushdown=False), mesh_mode="off")))
     return got, exp

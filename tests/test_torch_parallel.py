@@ -238,3 +238,26 @@ def test_plan_display_and_map_retry(tmp_path):
     ctx = _cpu()
     assert run_plan(op, ctx).num_rows == N_PARTS * ROWS
     assert ctx.metrics.counters["task_retries"] == 1
+
+
+def test_map_task_deterministic_failure_not_retried(tmp_path):
+    """A map task that fails with a deterministic error fails the stage
+    at once: only a transient failure is retried (the scheduler's
+    classification)."""
+    calls = {"n": 0}
+
+    class Broken(MemoryScanExec):
+        def execute(self, partition, ctx):
+            if partition == 1:
+                calls["n"] += 1
+                raise ValueError("bad plan")
+            return super().execute(partition, ctx)
+
+    base = port_scan()
+    ex = ShuffleExchangeExec(Broken(base.partitions, base.schema),
+                             [Col("k")], 3, shuffle_dir=str(tmp_path))
+    ctx = _cpu()
+    with pytest.raises(Exception, match="bad plan"):
+        run_plan(ex, ctx)
+    assert calls["n"] == 1
+    assert "task_retries" not in ctx.metrics.counters

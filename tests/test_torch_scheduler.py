@@ -3,8 +3,9 @@ tests/test_scheduler.py on the CPU: partitions run as tasks on a thread
 pool and come back in partition order, equal to a serial run; transient
 failures retry with backoff and are counted; a deterministic failure
 fails the plan; RESOURCE_EXHAUSTED degrades the partition to the host
-engine; the first fatal failure cancels the running siblings; the
-caller's cancel event aborts the plan. The instrumented metric tree
+engine on the CPU and fails the plan on the card; the first fatal
+failure cancels the running siblings; the caller's cancel event aborts
+the plan. The instrumented metric tree
 (runtime/instrument.py) waits for the obs tier."""
 
 import threading
@@ -70,16 +71,13 @@ def test_flaky_task_retries():
             return super().execute(partition, ctx)
 
     base = multi_scan(4)
-    attempts = []
     ctx = _cpu()
     out = run_plan_parallel(Flaky(base.partitions, base.schema), ctx=ctx,
-                            parallelism=2, retry_backoff_s=0.001,
-                            on_attempt=attempts.append)
+                            parallelism=2, retry_backoff_s=0.001)
     assert out.num_rows == 200
     assert fails["count"] == 2
     assert ctx.metrics.counters["task_retries"] == 2
-    assert [(a["partition"], a["action"]) for a in attempts] == \
-        [(2, "retry"), (2, "retry")]
+    assert ctx.metrics.counters["retries.transient"] == 2
 
 
 def test_permanent_failure_raises():
@@ -94,13 +92,17 @@ def test_permanent_failure_raises():
                           parallelism=2, max_attempts=2)
 
 
-def test_resource_exhausted_degrades_to_host():
-    """The failed partition re-runs through the pandas host engine
-    (planner/host_engine.execute_partition_host); the others stay
-    native; the result is the same."""
+def test_resource_exhausted_degrades_to_host(monkeypatch):
+    """On the CPU the failed partition re-runs through the pandas host
+    engine (planner/host_engine.execute_partition_host); the others
+    stay native; the result is the same. On the card the degrade is
+    refused: the original error fails the plan (the context names
+    cuda; every partition fails before it touches the device)."""
+    from blaze_tpu_torch.runtime import executor
+
     class Oom(MemoryScanExec):
         def execute(self, partition, ctx):
-            if partition == 1:
+            if partition == 1 or ctx.device.type == "cuda":
                 raise ResourceExhaustedError("device memory")
             return super().execute(partition, ctx)
 
@@ -111,8 +113,12 @@ def test_resource_exhausted_degrades_to_host():
     assert out.column("a").to_pylist() == list(range(0, 150, 2))
     assert ctx.metrics.counters["degraded_partitions"] == 1
     assert ctx.metrics.counters["degraded_rows"] == 25
-    with pytest.raises(TaskExecutionError):
-        run_plan_parallel(op, ctx=_cpu(), degrade_to_host=False)
+    monkeypatch.setattr(executor, "require_device", lambda device: None)
+    card = ExecContext(device="cuda")
+    with pytest.raises(TaskExecutionError) as err:
+        run_plan_parallel(op, ctx=card, parallelism=3)
+    assert isinstance(err.value.__cause__, ResourceExhaustedError)
+    assert "degraded_partitions" not in card.metrics.counters
 
 
 def test_backoff_delay_bounds():
