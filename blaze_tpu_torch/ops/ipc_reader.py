@@ -3,12 +3,11 @@
 Reference counterpart: IpcReaderExec (ipc_reader_exec.rs) with its three
 modes (rs:83-93): CHANNEL_UNCOMPRESSED (decoded batches), CHANNEL
 (compressed part bytes) and CHANNEL_AND_FILE_SEGMENT (a shuffle read:
-local segments read from the .data file by path, offset and length).
-Sources come through the context's resource registry, the analog of the
-reference's JniBridge resource map (JniBridge.java:31). Remote segments
-(another host's block server) wait for ROADMAP 'Modules to port' item 9
-(exchange tier, the rest: transport); a task that carries one is
-refused when it is decoded (plan/serde.py).
+local segments read from the .data file by path, offset and length,
+remote ones streamed off another host's BlockServer,
+runtime/transport.py). Sources come through the context's resource
+registry, the analog of the reference's JniBridge resource map
+(JniBridge.java:31).
 
 Decoded Arrow batches of one schema are concatenated on the host up to
 `batch_size` rows before they go to the device: a reduce task reads one
@@ -32,6 +31,10 @@ from blaze_tpu_torch.io.ipc import (
 )
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.runtime.prefetch import prefetch
+from blaze_tpu_torch.runtime.transport import (
+    RemoteSegment,
+    iter_remote_batches,
+)
 from blaze_tpu_torch.types import Schema
 
 
@@ -55,6 +58,10 @@ class FileSegment:
 
 
 def _source_batches(src) -> Iterator[pa.RecordBatch]:
+    if isinstance(src, RemoteSegment):
+        # a block on another host's BlockServer (the reference's
+        # remote-fetch path, ipc_reader_exec.rs:283-326)
+        return iter_remote_batches(src)
     if isinstance(src, FileSegment):
         return read_file_segment(src.path, src.offset, src.length)
     if isinstance(src, (bytes, bytearray, memoryview)):
@@ -72,8 +79,8 @@ class IpcReaderExec(PhysicalOp):
 
     `ctx.resources[resource_id]` holds a list of source lists (one per
     partition) or a callable partition -> list of sources. A source is
-    compressed part bytes, a FileSegment, a decoded RecordBatch, or a
-    file-like stream of parts."""
+    compressed part bytes, a FileSegment, a RemoteSegment, a decoded
+    RecordBatch, or a file-like stream of parts."""
 
     def __init__(self, resource_id: str, schema: Schema,
                  num_partitions: int,

@@ -54,9 +54,6 @@ from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.memory import get_pool
 from blaze_tpu_torch.types import Schema
 
-ROADMAP_EXCHANGE = ("ROADMAP 'Modules to port' item 9 (exchange tier, the "
-                    "rest)")
-
 MODES = ("hash", "single", "round_robin", "range")
 
 

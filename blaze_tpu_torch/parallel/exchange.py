@@ -12,10 +12,13 @@ compressed IPC parts and replays them to every consumer partition
 CoalescedShuffleReader maps AQE-style partition specs (coalesced ranges)
 onto the same files (reference NativeSupports.scala:131-212).
 
-Batches read back enter the device on the consumer's context device,
-coalesced to the batch size. The cluster exchanges (the JAX package's
-ClusterShuffleExchangeExec, RemoteClusterShuffleExchangeExec) wait for
-ROADMAP 'Modules to port' item 9's cluster and transport tier.
+ClusterShuffleExchangeExec runs the map stage as TaskDefinitions on a
+MiniCluster's worker processes (runtime/cluster.py) over a shared
+shuffle directory; RemoteClusterShuffleExchangeExec lets each worker
+write into its own private directory and reads every block back over
+the workers' BlockServers (runtime/transport.py). Batches read back
+enter the device on the consumer's context device, coalesced to the
+batch size.
 """
 
 from __future__ import annotations
@@ -47,13 +50,14 @@ def _device_batches(arrow: Iterator, ctx: ExecContext
         yield ColumnBatch.from_arrow(rb, device=ctx.device)
 
 
-def _segment_batches(segs: Sequence[FileSegment], ctx: ExecContext
+def _segment_batches(segs: Sequence, ctx: ExecContext
                      ) -> Iterator[ColumnBatch]:
-    from blaze_tpu_torch.io.ipc import read_file_segment
+    """Batches of local FileSegments or RemoteSegments, in order."""
+    from blaze_tpu_torch.ops.ipc_reader import _source_batches
 
     def arrow():
         for seg in segs:
-            yield from read_file_segment(seg.path, seg.offset, seg.length)
+            yield from _source_batches(seg)
 
     return _device_batches(arrow(), ctx)
 
@@ -272,6 +276,120 @@ class ShuffleExchangeExec(PhysicalOp):
                 ) -> Iterator[ColumnBatch]:
         yield from _segment_batches(
             self.segments_for((partition, partition + 1), ctx), ctx)
+
+
+class ClusterShuffleExchangeExec(ShuffleExchangeExec):
+    """ShuffleExchange whose map stage runs on a MiniCluster: map tasks
+    ship as serialized TaskDefinitions to worker processes (the Spark
+    driver's role for multi-host runs); the reduce side reads the same
+    .data/.index files. The child subtree must be serializable
+    (plan/serde). `map_metas` keeps each map task's completion record
+    (its worker, wall and kernel launches)."""
+
+    def __init__(self, child: PhysicalOp, keys, num_partitions: int,
+                 cluster, mode: str = "hash",
+                 shuffle_dir: Optional[str] = None):
+        super().__init__(child, keys, num_partitions, mode, shuffle_dir)
+        self.cluster = cluster
+        self.map_metas: Optional[List[dict]] = None
+
+    def describe(self) -> str:
+        return (f"ClusterShuffleExchangeExec({self.mode}, "
+                f"{self.num_partitions} partitions)")
+
+    def _map_task(self, map_id: int, data: str, index: str,
+                  bounds) -> bytes:
+        from blaze_tpu_torch.plan.serde import task_to_proto
+
+        plan = ShuffleWriterExec(
+            self.children[0], self.keys, self.num_partitions, data, index,
+            self.mode, range_bounds=bounds,
+            sort_ascending=self.sort_ascending)
+        return task_to_proto(plan, map_id, f"map-{map_id}")
+
+    def _run_cluster_maps(self, ctx: ExecContext, paths) -> List[dict]:
+        """Ship one writer task a child partition, each writing to its
+        (data, index) pair; wait for every completion record."""
+        bounds = (self._compute_range_bounds(ctx)
+                  if self.mode == "range" else None)
+        tasks = [self._map_task(m, data, index, bounds)
+                 for m, (data, index) in enumerate(paths)]
+        _, metas = self.cluster.run_tasks(tasks, return_metas=True)
+        ctx.metrics.add("exchange_map_tasks", len(tasks))
+        self.map_metas = metas
+        return metas
+
+    def _run_map_stage(self, ctx: ExecContext):
+        with self._lock:
+            if self._map_outputs is not None:
+                return self._map_outputs
+            d = self.shuffle_dir or tempfile.mkdtemp(
+                prefix="blz-cshuffle-", dir=ctx.config.spill_dir())
+            os.makedirs(d, exist_ok=True)
+            outputs = [
+                (os.path.join(d, f"cm{m}.data"),
+                 os.path.join(d, f"cm{m}.index"))
+                for m in range(self.children[0].partition_count)]
+            self._run_cluster_maps(ctx, outputs)
+            self._map_outputs = outputs
+            return outputs
+
+
+class RemoteClusterShuffleExchangeExec(ClusterShuffleExchangeExec):
+    """Cluster exchange over DISJOINT per-worker data directories: the
+    driver does not know (or share) where map outputs land. Map tasks
+    carry __WORKER_LOCAL__ shuffle paths that the claiming worker
+    rewrites into its private directory; its completion record reports
+    (host, port, path, per-partition ranges), and reduce reads stream
+    every block over the workers' BlockServers - the reference's netty
+    remote-fetch path (ArrowBlockStoreShuffleReader301.scala:83-123)
+    rather than its local-FileSegment shortcut."""
+
+    def describe(self) -> str:
+        return (f"RemoteClusterShuffleExchangeExec({self.mode}, "
+                f"{self.num_partitions} partitions)")
+
+    def _run_map_stage(self, ctx: ExecContext):
+        from blaze_tpu_torch.runtime.cluster import WORKER_LOCAL_PREFIX
+
+        with self._lock:
+            if self._map_outputs is not None:
+                return self._map_outputs
+            tag = f"{id(self):x}"
+            paths = [
+                (f"{WORKER_LOCAL_PREFIX}/ex{tag}_m{m}.data",
+                 f"{WORKER_LOCAL_PREFIX}/ex{tag}_m{m}.index")
+                for m in range(self.children[0].partition_count)]
+            self._map_outputs = self._run_cluster_maps(ctx, paths)
+            return self._map_outputs
+
+    def segments_for(self, partition_range: Tuple[int, int],
+                     ctx: ExecContext,
+                     map_range: Optional[Tuple[int, int]] = None):
+        from blaze_tpu_torch.runtime.transport import RemoteSegment
+
+        start, end = partition_range
+        metas = self._run_map_stage(ctx)
+        if map_range is not None:
+            metas = metas[map_range[0]: map_range[1]]
+        segs = []
+        for meta in metas:
+            for out in meta["outputs"]:
+                for p in range(start, end):
+                    off, length = out["ranges"][p]
+                    if length > 0:
+                        segs.append(RemoteSegment(
+                            meta["host"], meta["port"], out["data"], off,
+                            length))
+        return segs
+
+    def map_output_statistics(self, ctx: ExecContext) -> List[int]:
+        sizes = [0] * self.num_partitions
+        for meta in self._run_map_stage(ctx):
+            for out in meta["outputs"]:
+                for p, (_, length) in enumerate(out["ranges"]):
+                    sizes[p] += length
+        return sizes
 
 
 class CoalescedShuffleReader(PhysicalOp):

@@ -10,9 +10,10 @@ parquet_scan, ipc_reader, empty_partitions, filter, project, sort,
 union, limit, hash_aggregate, hash_join, sort_merge_join (streaming or
 not), shuffle_writer (hash, single, round_robin, and range with its
 sampled bounds and sort directions), ipc_writer, rename_columns, debug
-and window arms, and a task's local file resources (the IpcReader
-inputs of a reduce task); every other plan arm and remote segments
-raise NotImplementedError naming the ROADMAP item that brings them.
+and window arms, and a task's file resources (the IpcReader inputs of
+a reduce task: local FileSegments and RemoteSegments on another host's
+BlockServer); every other plan arm raises NotImplementedError naming
+the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -41,14 +42,12 @@ from blaze_tpu_torch.ops.limit import LimitExec
 from blaze_tpu_torch.ops.parquet_scan import FileRange, ParquetScanExec
 from blaze_tpu_torch.ops.project import ProjectExec
 from blaze_tpu_torch.ops.rename import RenameColumnsExec
-from blaze_tpu_torch.ops.shuffle_writer import (
-    ROADMAP_EXCHANGE,
-    ShuffleWriterExec,
-)
+from blaze_tpu_torch.ops.shuffle_writer import ShuffleWriterExec
 from blaze_tpu_torch.ops.sort import SortExec, SortKey
 from blaze_tpu_torch.ops.streaming_smj import StreamingSortMergeJoinExec
 from blaze_tpu_torch.ops.union import UnionExec
 from blaze_tpu_torch.ops.window import WindowExec, WindowFn
+from blaze_tpu_torch.runtime.transport import RemoteSegment
 
 _ROADMAP_OPS = "ROADMAP 'Modules to port'"
 
@@ -568,21 +567,27 @@ def _join_to_proto(h, op: PhysicalOp) -> None:
 def task_to_proto(op: PhysicalOp, partition: int, task_id: str = "task",
                   file_resources=None) -> bytes:
     """TaskDefinition bytes. `file_resources` is {resource_id:
-    [FileSegment, ...]}: the local segments an IpcReader leaf of the task
-    reads, shipped with it, in read order."""
+    [FileSegment | RemoteSegment, ...]}: the segments an IpcReader leaf
+    of the task reads, shipped with it; list order is the read order."""
     t = pb.TaskDefinitionProto(partition=partition, task_id=task_id)
     t.plan.CopyFrom(plan_to_proto(op))
     for rid, segments in (file_resources or {}).items():
         rp = t.file_resources.add(resource_id=rid)
         for seg in segments:
-            if not isinstance(seg, FileSegment):
-                raise NotImplementedError(
-                    f"file resource {type(seg).__name__}: remote segments "
-                    f"wait for {ROADMAP_EXCHANGE}")
             o = rp.ordered.add()
-            o.local.path = seg.path
-            o.local.start = seg.offset
-            o.local.length = seg.length
+            if isinstance(seg, RemoteSegment):
+                o.remote.host = seg.host
+                o.remote.port = seg.port
+                o.remote.path = seg.path
+                o.remote.start = seg.offset
+                o.remote.length = seg.length
+            elif isinstance(seg, FileSegment):
+                o.local.path = seg.path
+                o.local.start = seg.offset
+                o.local.length = seg.length
+            else:
+                raise TypeError(
+                    f"file resource of type {type(seg).__name__}")
     return t.SerializeToString()
 
 
@@ -597,10 +602,12 @@ def task_from_proto(data: bytes):
         # the legacy local-only field first, then the ordered list
         segs = [FileSegment(s.path, s.start, s.length) for s in rp.segments]
         for o in rp.ordered:
-            if o.WhichOneof("kind") != "local":
-                raise NotImplementedError(
-                    f"remote file segments wait for {ROADMAP_EXCHANGE}")
-            segs.append(FileSegment(o.local.path, o.local.start,
-                                    o.local.length))
+            if o.WhichOneof("kind") == "remote":
+                r = o.remote
+                segs.append(RemoteSegment(r.host, r.port, r.path, r.start,
+                                          r.length))
+            else:
+                segs.append(FileSegment(o.local.path, o.local.start,
+                                        o.local.length))
         resources[rp.resource_id] = (lambda ss: (lambda p: ss))(segs)
     return plan_from_proto(t.plan), t.partition, t.task_id, resources

@@ -4,12 +4,14 @@
     python3 chip_smoke.py            # the full run: 8,388,608 parquet rows
                                      # (q6, select, expr_chain,
                                      # exchange_agg, grace, join_agg,
-                                     # join_kr, window, sort_topk; 2^24
-                                     # before the strings phases, cut
-                                     # so they fit), 4,194,304 (grouped,
-                                     # repartition, join_sorted,
-                                     # sort_full), 16,777,216 fact rows
-                                     # (tpcds_brand, tpcds_customer)
+                                     # join_kr, window, sort_topk, the
+                                     # planner and cluster tasks),
+                                     # --grouped-rows 4,194,304
+                                     # (grouped, join_sorted,
+                                     # dec_grouped, dec_exchange),
+                                     # --string-rows 8,388,608 fact
+                                     # rows (tpcds_brand,
+                                     # tpcds_customer)
     python3 chip_smoke.py --rows N --grouped-rows M --string-rows S
                                      # other depths
     python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6 and
@@ -171,7 +173,8 @@ Phases, one JSON line each:
      distinct, 4 row groups with their own dictionaries) on item * 8 +
      qty % 8, GROUP BY c_customer_id, ORDER BY it, LIMIT 100, against
      numpy; then the aggregate as Spark plans it over a hash exchange on
-     c_customer_id: 4,194,304 rows in 4 map tasks (PARTIAL, the
+     c_customer_id: 2,097,152 rows (4,194,304 before the cluster
+     slice) in 4 map tasks (PARTIAL, the
      ShuffleWriter hashing the strings on the host) and 200 reduce
      tasks (FINAL), every group against numpy, each group's reducer and
      the partition ids of 65,536 customer ids bit for bit against a
@@ -244,8 +247,48 @@ Phases, one JSON line each:
      (q67 and q86 may hold by rank tolerance).
    The q6 task of the path phase decodes 2 of its 3 columns (its line
    also times q6 without hints, with pruning only and with pruning and
-   pushdown, in turns, warm). The shape
-   of every kernel launch on these paths is noted.
+   pushdown, in turns, warm).
+   Then the task-entry and cluster tier (`cluster_phase`, last), over
+   one `--rows` store_sales file as 4 byte ranges, 200 shuffle
+   partitions and a MiniCluster of 2 worker processes on the card,
+   each a `cluster` line with its wall and K1-K4 launches:
+   - ref_q6: q6 in the reference's wire format (FINAL <- PARTIAL <-
+     projection <- filter <- parquet scan of the 4 ranges, keyless),
+     encoded field by field as tests/test_refwire_corpus.py encodes its
+     fixtures and pinned to the generated reference parser, sent by
+     cpp/blaze_client.cpp --ref to the port's TaskGatewayServer:
+     COUNT exact, SUM within 1e-9 relative of numpy;
+   - ref_corpus, over byte range 0: bench.py's grouped_agg as PARTIAL
+     -> FINAL, join_agg through the CollectLeft hash join and through
+     the sort-merge join, and a shuffle writer (PARTIAL by g, hash g
+     into 200) whose 200 ipc_reader -> FINAL reduce tasks get their
+     file segments in the client's --manifest, two connections at
+     once; each against numpy, every group in its Spark partition;
+   - cluster_exchange: exchange_agg's keyed aggregate with its map
+     stage (4 tasks) through ClusterShuffleExchangeExec on the workers
+     and the 200 FINAL partitions in this process: exact; the map and
+     reduce walls, each worker's first task apart from its later ones,
+     the K4 and K3 launches the workers made (their completion
+     records), shuffle_bytes_written, retries and quarantines (each
+     gated at 0); then its map stage over a 32nd of the rows (4 byte
+     ranges of a row group each) on the 2 workers and on 4 threads in
+     this process, in turns (`map_stage_compare`);
+   - remote_exchange: the same through RemoteClusterShuffleExchangeExec:
+     each worker's private directory, every block fetched over its
+     BlockServer (segments and bytes fetched, both above 0), exact;
+   - a cProfile of one exchange map task over the file's first row
+     group and one reduce task of its output (`host_profile` lines: the top entries by cumulative and by own
+     time, and parquet decode, zstd, the IPC stream per part, the
+     scatter's device-to-host copy);
+   - shuffle_manager: map 0 written by write_map_native on the card,
+     map 1 by write_map_batches on the host, one shuffle; every reduce
+     partition reads both, holds only its keys, all rows exactly once;
+     host_partition_ids equal to K4's ids bit for bit at 16,384 rows
+     and n = 200, for three key sets;
+   - embed: q6 through the port's C++ embed host (csrc/blaze_embed*.cpp,
+     g++ and python3-config --embed), CPython hosted in the host
+     process, on the card: its Arrow C-Data checksums against numpy.
+   The shape of every kernel launch on these paths is noted.
 5. kernels_at_path_shapes: each kernel against its plain version, as in
    phase 3, at every launch shape of phase 4 that phase 3 did not check;
    then K1, K2 and K3 timed at the most launched of those shapes (K2 at
@@ -4515,6 +4558,779 @@ def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4, continued: the task-entry and cluster tier
+# ---------------------------------------------------------------------------
+
+CLUSTER_WORKERS = 2  # worker processes on the one card
+CLUSTER_SPLITS = 4  # FileRange partitions of the fact file (map tasks)
+HOST_ID_ROWS = 16384  # host_partition_ids against K4: one batch
+HOST_ID_KEYS = (("item",), ("item", "price"), ("qty", "price", "item"))
+PROFILE_TOP = 15  # cProfile entries printed a task
+
+
+# The reference's wire format, encoded field by field from protobuf's
+# wire rules (as tests/test_refwire_corpus.py encodes its fixtures, not
+# by the generated encoder); field numbers are the reference's
+# plan.proto: PhysicalPlanNode :26-43, TaskDefinition :508-513.
+
+def _vint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if not n:
+            out.append(b)
+            return bytes(out)
+        out.append(b | 0x80)
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    """A length-delimited field (wire type 2)."""
+    return _vint(field << 3 | 2) + _vint(len(payload)) + payload
+
+
+def _uv(field: int, n: int) -> bytes:
+    """A varint field; canonical proto3 leaves out zero."""
+    return _vint(field << 3) + _vint(n) if n else b""
+
+
+def _s(field: int, text: str) -> bytes:
+    return _ld(field, text.encode()) if text else b""
+
+
+REF_TYPES = {"int32": 8, "int64": 10, "float32": 12, "float64": 13}
+REF_AGG = {"MIN": 0, "MAX": 1, "SUM": 2, "AVG": 3, "COUNT": 4}
+
+
+def ref_schema(fields):
+    """Schema{columns: Field{name, arrow_type, nullable}}."""
+    return b"".join(_ld(1, _s(1, name) + _ld(2, _ld(REF_TYPES[t], b""))
+                        + _uv(3, 1)) for name, t in fields)
+
+
+def ref_col(name: str) -> bytes:
+    return _ld(1, _s(1, name))
+
+
+def ref_lit(kind: str, v) -> bytes:
+    """ScalarValue int32_value (6) or float32_value (12)."""
+    import struct
+
+    if kind == "int32":
+        return _ld(2, _uv(6, v))
+    return _ld(2, _vint(12 << 3 | 5) + struct.pack("<f", v))
+
+
+def ref_bin(op: str, left: bytes, right: bytes) -> bytes:
+    return _ld(3, _ld(1, left) + _ld(2, right) + _s(3, op))
+
+
+def ref_cast(e: bytes, t: str) -> bytes:
+    return _ld(9, _ld(1, e) + _ld(2, _ld(REF_TYPES[t], b"")))
+
+
+def ref_agg(fn: str, e: bytes) -> bytes:
+    return _ld(4, _uv(1, REF_AGG[fn]) + _ld(2, e))
+
+
+def ref_scan(ranges, fields) -> bytes:
+    """parquet_scan (5) of one FileGroup of (path, start, length) byte
+    ranges: partition 0 reads them all."""
+    files = b"".join(_ld(1, _s(1, p) + _uv(2, os.path.getsize(p))
+                         + _ld(5, _uv(1, start) + _uv(2, start + n)))
+                     for p, start, n in ranges)
+    return _ld(5, _ld(1, _ld(1, files) + _ld(2, ref_schema(fields))))
+
+
+def ref_filter(inp: bytes, e: bytes) -> bytes:
+    return _ld(8, _ld(1, inp) + _ld(2, e))
+
+
+def ref_project(inp: bytes, named) -> bytes:
+    return _ld(6, _ld(1, inp) + b"".join(_ld(2, e) for e, _ in named)
+               + b"".join(_s(3, n) for _, n in named))
+
+
+def ref_agg_node(inp: bytes, final: bool, keys, aggs, fields) -> bytes:
+    """hash_aggregate (14): PARTIAL (0) or FINAL (1)."""
+    return _ld(14, b"".join(_ld(1, e) for e, _ in keys)
+               + b"".join(_ld(2, e) for e, _ in aggs) + _uv(3, int(final))
+               + _ld(4, inp) + b"".join(_s(5, n) for _, n in keys)
+               + b"".join(_s(6, n) for _, n in aggs)
+               + _ld(7, ref_schema(fields)))
+
+
+def ref_join(kind: str, left: bytes, right: bytes, lkey: str,
+             rkey: str) -> bytes:
+    """An INNER hash_join (11, CollectLeft) or sort_merge_join (10)."""
+    on = _ld(3, _ld(1, _s(1, lkey)) + _ld(2, _s(1, rkey)))
+    if kind == "hash_join":
+        return _ld(11, _ld(1, left) + _ld(2, right) + on)
+    return _ld(10, _ld(1, left) + _ld(2, right) + on + _ld(4, _uv(1, 1)))
+
+
+def ref_shuffle_writer(inp: bytes, key: bytes, n: int, data: str,
+                       index: str):
+    """shuffle_writer (2) and its PhysicalHashRepartition."""
+    rep = _ld(1, key) + _uv(2, n)
+    return _ld(2, _ld(1, inp) + _ld(2, rep) + _s(3, data)
+               + _s(4, index)), rep
+
+
+def ref_ipc_reader(rid: str, fields, n: int) -> bytes:
+    """ipc_reader (3), CHANNEL_AND_FILE_SEGMENT (2)."""
+    return _ld(3, _uv(1, n) + _ld(2, ref_schema(fields)) + _uv(3, 2)
+               + _s(4, rid))
+
+
+def ref_task(plan: bytes, job: str, partition: int = 0,
+             out_rep: bytes = b"") -> bytes:
+    """TaskDefinition bytes, pinned: the generated reference parser
+    reads them and writes them back byte for byte."""
+    from blaze_tpu_torch.plan.refpb import refplan_pb2 as rp
+
+    blob = (_ld(1, _s(1, job) + _uv(4, partition)) + _ld(2, plan)
+            + (_ld(3, out_rep) if out_rep else b""))
+    t = rp.TaskDefinition()
+    t.ParseFromString(blob)
+    if t.SerializeToString() != blob:
+        raise AssertionError(f"{job}: the hand-encoded task is not "
+                             "canonical reference wire")
+    return blob
+
+
+STORE_SALES = [("item", "int32"), ("qty", "int32"), ("price", "float32")]
+ITEM_DIM = [("i_item", "int32"), ("i_brand", "int32")]
+
+
+def ref_q6_task(ranges) -> bytes:
+    """q6 as the reference plans it: FINAL <- PARTIAL <- projection <-
+    filter <- parquet scan, keyless SUM(rev) and COUNT(rev)."""
+    filt = ref_filter(ref_scan(ranges, STORE_SALES), ref_bin(
+        "And", ref_bin("Gt", ref_col("price"), ref_lit("float32", 50.0)),
+        ref_bin("Lt", ref_col("qty"), ref_lit("int32", 8))))
+    proj = ref_project(filt, [(ref_bin(
+        "Multiply", ref_col("price"), ref_cast(ref_col("qty"), "float32")),
+        "rev")])
+    partial = ref_agg_node(proj, False, [],
+                           [(ref_agg("SUM", ref_col("rev")), "t"),
+                            (ref_agg("COUNT", ref_col("rev")), "n")],
+                           [("rev", "float32")])
+    final = ref_agg_node(partial, True, [],
+                         [(ref_agg("SUM", ref_col("t")), "t"),
+                          (ref_agg("COUNT", ref_col("n")), "n")],
+                         [("t", "float64"), ("n", "int64")])
+    return ref_task(final, "ref-q6")
+
+
+REF_GROUPED_AGGS = (("SUM", "price", "s"), ("MIN", "price", "lo"),
+                    ("MAX", "price", "hi"), ("AVG", "qty", "aq"))
+
+
+def ref_grouped_partial(inp: bytes) -> bytes:
+    """bench.py's grouped_agg map side: g = item % 4096, PARTIAL
+    SUM/MIN/MAX(price), AVG(qty) by g."""
+    proj = ref_project(inp, [
+        (ref_bin("Modulo", ref_col("item"), ref_lit("int32", GROUPS)), "g"),
+        (ref_col("price"), "price"), (ref_col("qty"), "qty")])
+    return ref_agg_node(proj, False, [(ref_col("g"), "g")],
+                        [(ref_agg(fn, ref_col(c)), n)
+                         for fn, c, n in REF_GROUPED_AGGS],
+                        [("g", "int32"), ("price", "float32"),
+                         ("qty", "int32")])
+
+
+def ref_grouped_final(inp: bytes) -> bytes:
+    return ref_agg_node(inp, True, [(ref_col("g"), "g")],
+                        [(ref_agg(fn, ref_col(c)), n)
+                         for fn, c, n in REF_GROUPED_AGGS],
+                        [("g", "int32"), ("s", "float64"),
+                         ("lo", "float32"), ("hi", "float32"),
+                         ("aq", "float64")])
+
+
+def ref_join_agg_task(kind: str, fact_ranges, dim_path: str) -> bytes:
+    """bench.py's join_agg in the reference's plan: the item dimension
+    (build, left) joined to store_sales, then per brand SUM(price) and
+    COUNT(price), PARTIAL then FINAL."""
+    join = ref_join(kind, ref_scan([(dim_path, 0,
+                                     os.path.getsize(dim_path))], ITEM_DIM),
+                    ref_scan(fact_ranges, STORE_SALES), "i_item", "item")
+    aggs = [(ref_agg("SUM", ref_col("price")), "rev"),
+            (ref_agg("COUNT", ref_col("price")), "cnt")]
+    partial = ref_agg_node(join, False, [(ref_col("i_brand"), "brand")],
+                           aggs, ITEM_DIM + STORE_SALES)
+    final = ref_agg_node(partial, True, [(ref_col("brand"), "brand")],
+                         aggs, [("brand", "int32"), ("rev", "float64"),
+                                ("cnt", "int64")])
+    return ref_task(final, f"ref-{kind}")
+
+
+def build_client() -> str:
+    """cpp/blaze_client.cpp (the client of both packages' gateways),
+    built with g++ into build/blaze_tpu_torch/ at first use. Where
+    <zstd.h> is missing but libzstd.so.1 is not (the card's machine),
+    against the declarations of blaze_tpu_torch/csrc/zstd_abi/."""
+    import hashlib
+
+    src = os.path.join(REPO, "cpp", "blaze_client.cpp")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = os.path.join(REPO, "build", "blaze_tpu_torch",
+                       f"blaze_client-{digest}")
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        has_header = subprocess.run(
+            ["g++", "-E", "-x", "c++", "-"], input="#include <zstd.h>\n",
+            capture_output=True, text=True).returncode == 0
+        zstd = (["-lzstd"] if has_header else
+                ["-I", os.path.join(REPO, "blaze_tpu_torch", "csrc",
+                                    "zstd_abi"), "-l:libzstd.so.1"])
+        r = subprocess.run(["g++", "-O2", "-o", out + ".tmp", src, *zstd],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ failed for blaze_client.cpp:\n"
+                               f"{r.stderr}")
+        os.replace(out + ".tmp", out)
+    return out
+
+
+def gateway_call(client: str, address, blob: bytes, path: str,
+                 manifest=None):
+    """One task through the C++ client over the gateway (reference wire,
+    `--ref`); returns its Arrow batches. The client must exit 0."""
+    from blaze_tpu_torch.io.ipc import decode_ipc_parts
+
+    with open(path + ".task", "wb") as f:
+        f.write(blob)
+    argv = [client, address[0], str(address[1]), path + ".task",
+            path + ".out", "--ref"]
+    if manifest is not None:
+        with open(path + ".json", "w") as f:
+            json.dump(manifest, f)
+        argv += ["--manifest", path + ".json"]
+    r = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"blaze_client exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    with open(path + ".out", "rb") as f:
+        return list(decode_ipc_parts(f.read()))
+
+
+def worker_launches(metas):
+    """Kernel launches the map tasks made in the workers, summed from
+    their completion records."""
+    total = collections.Counter()
+    for m in metas:
+        total.update(m["launches"])
+    return dict(total)
+
+
+def add_launches(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def first_task_walls(metas):
+    """Each worker's first task (CUDA init, the kernels' loading) apart
+    from its later ones."""
+    first = [m["wall_s"] for m in metas if m["task_index"] == 0]
+    rest = [m["wall_s"] for m in metas if m["task_index"] > 0]
+    return {"first_task_s": first, "later_task_s": rest}
+
+
+def host_profile(fn, task: str, top: int = PROFILE_TOP, input_rows=None):
+    """cProfile of one call of fn (one task, over `input_rows` rows where
+    given): the entries with the most cumulative time, and the named
+    costs of the exchange (parquet decode, zstd, the IPC stream per
+    part, the scatter's device-to-host copy)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof)
+    rows = []
+    for (file, line, name), (cc, nc, tt, ct, _) in st.stats.items():
+        rows.append({"fn": f"{os.path.basename(file)}:{line}:{name}",
+                     "calls": nc, "tottime_s": tt, "cumtime_s": ct})
+    named = {
+        "parquet_decode": ("read_row_group", "iter_batches"),
+        "zstd": ("compress",),
+        "ipc_stream_per_part": ("ipc_stream_bytes",),
+        "scatter_d2h": ("scatter_by_partition",),
+        "to_arrow": ("to_arrow",),
+        "from_arrow": ("from_arrow",),
+    }
+    costs = {}
+    for label, names in named.items():
+        hits = [r for r in rows if any(n in r["fn"] for n in names)]
+        costs[label] = {"cumtime_s": max((r["cumtime_s"] for r in hits),
+                                         default=0.0),
+                        "calls": sum(r["calls"] for r in hits)}
+    rows.sort(key=lambda r: -r["cumtime_s"])
+    emit({"phase": "host_profile", "task": task, "rows": input_rows,
+          "wall_s": wall,
+          "named": costs, "top_cumulative": rows[:top],
+          "top_self": sorted(rows, key=lambda r: -r["tottime_s"])[:top]})
+
+
+def cluster_phase(torch, rows: int, seed: int, kernels, device="cuda"):
+    """The task-entry and cluster tier on the card: reference-wire tasks
+    through the C++ client and the gateway (ref_q6, ref_corpus), the
+    exchange's map stage on a MiniCluster of worker processes with
+    local and remote shuffle reads (cluster_exchange,
+    remote_exchange), one shuffle written by both tiers of the shuffle
+    manager, q6 through the C++ embed host in process, and a host
+    profile of one map and one reduce task."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import AggMode, FileRange, HashAggregateExec
+    from blaze_tpu_torch.ops import ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.parallel import (
+        ClusterShuffleExchangeExec,
+        RemoteClusterShuffleExchangeExec,
+    )
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime.cluster import MiniCluster
+    from blaze_tpu_torch.runtime.executor import execute_task, run_plan
+    from blaze_tpu_torch.runtime.gateway import TaskGatewayServer
+
+    work = os.path.join(REPO, "build", "chip_smoke_cluster")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    results = {}
+    cluster = MiniCluster(CLUSTER_WORKERS,
+                          spool_dir=os.path.join(work, "spool"),
+                          device=device)
+    # the workers import torch while the gateway tasks run
+    cluster.start()
+    try:
+        t0 = time.perf_counter()
+        fact = os.path.join(work, "store_sales.parquet")
+        item, qty, price = write_store_sales(fact, rows, seed)
+        brands = item_brands(rows, seed)
+        dim = os.path.join(work, "item.parquet")
+        pq.write_table(pa.table({"i_item": np.arange(ITEMS, dtype=np.int32),
+                                 "i_brand": brands}), dim)
+        groups = byte_splits(FileRange, fact, CLUSTER_SPLITS)
+        ranges = [(g[0].path, g[0].start, g[0].length) for g in groups]
+        # the rows of byte range 0 (its row groups, by the midpoint
+        # rule), read on the host: the one-range reference tasks' oracle
+        item0, qty0, price0 = range_columns(groups[0][0])
+        write_s = time.perf_counter() - t0
+        client = build_client()
+
+        # ref_q6 and ref_corpus: reference-wire TaskDefinitions through
+        # the C++ client and the port's TaskGatewayServer
+        with TaskGatewayServer(device=device) as gw:
+            out, wall, launches, transfers = run_counted(
+                torch, lambda: gateway_call(client, gw.address,
+                                            ref_q6_task(ranges),
+                                            os.path.join(work, "q6")),
+                kernels)
+            got_sum, got_n = check_q6(out, qty, price, "ref_q6")
+            if launches["masked_stats"] <= 0:
+                raise AssertionError("ref_q6 did not launch masked_stats")
+            results["ref_q6"] = {"launches": launches, "wall_s": wall}
+            emit({"phase": "cluster", "task": "ref_q6", "rows": rows,
+                  "wall_s": wall, "rows_per_s": rows / wall,
+                  "wire": "reference (header bit 63)",
+                  "client": "cpp/blaze_client.cpp", "launches": launches,
+                  "transfers": transfers, "parquet_write_s": write_s})
+
+            corpus = {}
+            grouped = ref_task(ref_grouped_final(ref_grouped_partial(
+                ref_scan(ranges[:1], STORE_SALES))), "ref-grouped")
+            out, wall, launches, transfers = run_counted(
+                torch, lambda: gateway_call(client, gw.address, grouped,
+                                            os.path.join(work, "grouped")),
+                kernels)
+            check_grouped(pa.Table.from_batches(out),
+                          grouped_oracle(item0, qty0, price0), "ref_grouped")
+            corpus["grouped"] = (wall, launches)
+            for kind in ("hash_join", "sort_merge_join"):
+                blob = ref_join_agg_task(kind, ranges[:1], dim)
+                out, wall, launches, transfers = run_counted(
+                    torch, lambda: gateway_call(client, gw.address, blob,
+                                                os.path.join(work, kind)),
+                    kernels)
+                check_join_agg(pa.Table.from_batches(out), item0, price0,
+                               brands, f"ref_{kind}")
+                corpus[kind] = (wall, launches)
+
+            # a shuffle writer (PARTIAL by g, hash g into 200) over byte
+            # range 0, then 200 ipc_reader -> FINAL reduce tasks whose
+            # file segments ride in the manifest, two connections at once
+            data = os.path.join(work, "ref.data")
+            index = os.path.join(work, "ref.index")
+            node, rep = ref_shuffle_writer(
+                ref_grouped_partial(ref_scan(ranges[:1], STORE_SALES)),
+                ref_col("g"), SHUFFLE_PARTITIONS, data, index)
+            map_blob = ref_task(node, "ref-map", out_rep=rep)
+            state = [("g", "int32"), ("s", "float64"), ("lo", "float32"),
+                     ("hi", "float32"), ("aq", "float64")]
+
+            def shuffle_stage():
+                import concurrent.futures as cf
+
+                from blaze_tpu_torch.io.ipc import partition_ranges
+
+                if gateway_call(client, gw.address, map_blob,
+                                os.path.join(work, "map")):
+                    raise AssertionError("ref shuffle writer returned rows")
+                segs = partition_ranges(index)
+
+                def reduce(p):
+                    off, n = segs[p]
+                    manifest = {"shuffle": [
+                        [{"file": data, "offset": off, "length": n}]
+                        if q == p else [] for q in range(
+                            SHUFFLE_PARTITIONS)]}
+                    blob = ref_task(ref_grouped_final(ref_ipc_reader(
+                        "shuffle", state, SHUFFLE_PARTITIONS)),
+                        "ref-reduce", partition=p)
+                    return gateway_call(client, gw.address, blob,
+                                        os.path.join(work, f"r{p}"),
+                                        manifest)
+
+                with cf.ThreadPoolExecutor(2) as pool:
+                    return list(pool.map(reduce, range(SHUFFLE_PARTITIONS)))
+
+            outs, wall, launches, transfers = run_counted(
+                torch, shuffle_stage, kernels)
+            table = pa.concat_tables([pa.Table.from_batches(o)
+                                      for o in outs if o])
+            check_grouped(table, grouped_oracle(item0, qty0, price0),
+                          "ref_shuffle")
+            for r, o in enumerate(outs):
+                for rb in o:
+                    if not (spark_pids(rb.column(0).to_numpy(),
+                                       SHUFFLE_PARTITIONS) == r).all():
+                        raise AssertionError(
+                            f"ref_shuffle: reducer {r} holds a group of "
+                            "another partition")
+            corpus["shuffle"] = (wall, launches)
+            total = {}
+            for _, l in corpus.values():
+                total = add_launches(total, l)
+            for name in ("segment_reduce", "murmur3"):
+                if total[name] <= 0:
+                    raise AssertionError(f"ref_corpus did not launch {name}")
+            results["ref_corpus"] = {"launches": total,
+                                     "wall_s": sum(w for w, _ in
+                                                   corpus.values())}
+            emit({"phase": "cluster", "task": "ref_corpus",
+                  "rows": len(item0), "wire": "reference (header bit 63)",
+                  "tasks": {k: {"wall_s": w, "launches": l}
+                            for k, (w, l) in corpus.items()},
+                  "shuffle_reduce_tasks": SHUFFLE_PARTITIONS,
+                  "concurrent_connections": 2,
+                  "manifest": "file segments (header bit 62)",
+                  "launches": total})
+
+        # cluster_exchange and remote_exchange: exchange_agg's keyed
+        # aggregate, the map stage (PARTIAL by g, hash g into 200) on
+        # the workers, the 200 FINAL reduce partitions in this process
+        fact_scan = ParquetScanExec(groups)
+        oracle = grouped_oracle(item, qty, price)
+
+        def exchange_run(ex_cls, task, **kw):
+            ex = ex_cls(grouped_plan(fact_scan, AggMode.PARTIAL),
+                        [Col("g")], SHUFFLE_PARTITIONS, cluster, **kw)
+            final = HashAggregateExec(ex, keys=[(Col("g"), "g")],
+                                      aggs=grouped_aggs(),
+                                      mode=AggMode.FINAL)
+            ctx = ExecContext(device=device)
+            retries = cluster.retries
+            _, map_wall, _, _ = run_counted(
+                torch, lambda: ex.map_output_statistics(ctx), kernels)
+            table, red_wall, launches, transfers = run_counted(
+                torch, lambda: run_plan(final, ctx), kernels)
+            check_grouped(table, oracle, task)
+            segs = ex.segments_for((0, SHUFFLE_PARTITIONS), ctx)
+            wl = worker_launches(ex.map_metas)
+            for name in ("murmur3", "segment_reduce"):
+                if wl.get(name, 0) <= 0 and device != "cpu":
+                    raise AssertionError(f"{task}: the workers did not "
+                                         f"launch {name}")
+            if cluster.retries != retries or cluster.quarantined:
+                raise AssertionError(
+                    f"{task}: {cluster.retries - retries} retries, "
+                    f"quarantined {cluster.quarantined}")
+            results[task] = {"launches": add_launches(launches, wl),
+                             "wall_s": map_wall + red_wall}
+            line = {"phase": "cluster", "task": task, "rows": rows,
+                    "wall_s": map_wall + red_wall,
+                    "map_stage_s": map_wall, "reduce_stage_s": red_wall,
+                    "rows_per_s": rows / (map_wall + red_wall),
+                    "workers": CLUSTER_WORKERS, "map_tasks": len(groups),
+                    "reduce_partitions": SHUFFLE_PARTITIONS,
+                    "groups": table.num_rows,
+                    "shuffle_bytes_written": sum(
+                        ex.map_output_statistics(ctx)),
+                    "worker_launches": wl, "driver_launches": launches,
+                    "transfers": transfers,
+                    "retries": cluster.retries - retries,
+                    "quarantined": len(cluster.quarantined),
+                    **first_task_walls(ex.map_metas)}
+            return ex, segs, line
+
+        ex, segs, line = exchange_run(
+            ClusterShuffleExchangeExec, "cluster_exchange",
+            shuffle_dir=os.path.join(work, "cshuffle"))
+        emit(line)
+        map_stage_compare(torch, work, rows // 32, seed, cluster, kernels,
+                          device)
+
+        ex, segs, line = exchange_run(RemoteClusterShuffleExchangeExec,
+                                      "remote_exchange")
+        from blaze_tpu_torch.runtime.transport import RemoteSegment
+
+        remote = [s for s in segs if isinstance(s, RemoteSegment)]
+        if len(remote) != len(segs) or not sum(s.length for s in remote):
+            raise AssertionError(f"remote_exchange: {len(remote)} of "
+                                 f"{len(segs)} segments remote")
+        line.update(remote_segments=len(remote),
+                    remote_bytes=sum(s.length for s in remote),
+                    block_servers=len({(s.host, s.port) for s in remote}))
+        emit(line)
+
+        # host profile: one exchange map task over the file's first row
+        # group and one reduce task of its output, as TaskDefinitions
+        # through execute_task in this process
+        from blaze_tpu_torch.ops.parquet_scan import row_group_midpoint
+
+        meta = pq.ParquetFile(fact).metadata
+        one_group = ParquetScanExec([[FileRange(
+            fact, 0, row_group_midpoint(meta.row_group(0)) + 1)]])
+        mdata = os.path.join(work, "prof.data")
+        mindex = os.path.join(work, "prof.index")
+        map_blob = task_to_proto(exchange_map_plan(one_group, mdata, mindex),
+                                 0)
+        host_profile(lambda: list(execute_task(map_blob, ExecContext(
+            device=device))), "exchange_map_task",
+            input_rows=meta.row_group(0).num_rows)
+        reduce_blob = reduce_tasks(exchange_reduce_plan(
+            grouped_plan(fact_scan, AggMode.PARTIAL).schema),
+            [(mdata, mindex)], SHUFFLE_PARTITIONS)[0]
+        host_profile(lambda: list(execute_task(reduce_blob, ExecContext(
+            device=device))), "exchange_reduce_task")
+    finally:
+        cluster.stop()
+
+    try:
+        # shuffle_manager: map 0 by the device tier, map 1 by the host
+        # tier, one shuffle; every reduce partition reads both
+        results.update(shuffle_manager_check(torch, work, fact, groups,
+                                             kernels, device))
+        # embed: q6 through the C++ embed host, in process on the card
+        embed_check(work, fact, qty, price, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+def map_stage_compare(torch, work: str, rows: int, seed: int, cluster,
+                      kernels, device="cuda"):
+    """exchange_agg's map stage (PARTIAL by g, hash g into 200) over
+    `rows` rows in 4 byte ranges of one row group each, in turns: on the
+    MiniCluster's 2 (warm) worker processes, then on 4 threads in this
+    process (the scheduler's way)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.ops import AggMode, FileRange, ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.parallel import (
+        ClusterShuffleExchangeExec,
+        ShuffleExchangeExec,
+    )
+
+    path = os.path.join(work, "store_sales_compare.parquet")
+    item, qty, price = store_sales_columns(rows, seed)
+    pq.write_table(pa.table({"item": item, "qty": qty, "price": price}),
+                   path, compression="zstd",
+                   row_group_size=-(-rows // CLUSTER_SPLITS))
+    scan = ParquetScanExec(byte_splits(FileRange, path, CLUSTER_SPLITS))
+    walls = {}
+    for name, make in (
+            ("processes_2", lambda: ClusterShuffleExchangeExec(
+                grouped_plan(scan, AggMode.PARTIAL), [Col("g")],
+                SHUFFLE_PARTITIONS, cluster,
+                shuffle_dir=os.path.join(work, "cmp_processes"))),
+            ("threads_4", lambda: ShuffleExchangeExec(
+                grouped_plan(scan, AggMode.PARTIAL), [Col("g")],
+                SHUFFLE_PARTITIONS,
+                shuffle_dir=os.path.join(work, "cmp_threads")))):
+        ex = make()
+        sizes, walls[name], _, _ = run_counted(
+            torch, lambda: ex.map_output_statistics(
+                ExecContext(device=device)), kernels)
+        walls[name + "_bytes"] = sum(sizes)
+    if walls["processes_2_bytes"] != walls["threads_4_bytes"]:
+        raise AssertionError(f"map_stage_compare: {walls}")
+    emit({"phase": "cluster", "task": "map_stage_compare", "rows": rows,
+          "map_tasks": CLUSTER_SPLITS,
+          "reduce_partitions": SHUFFLE_PARTITIONS,
+          "processes_2_s": walls["processes_2"],
+          "threads_4_s": walls["threads_4"],
+          "shuffle_bytes_written": walls["threads_4_bytes"]})
+
+
+def range_columns(file_range):
+    """(item, qty, price) of the row groups a FileRange owns, read on
+    the host with the scan's own rule."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.ops.parquet_scan import row_group_midpoint
+
+    pf = pq.ParquetFile(file_range.path)
+    end = file_range.start + file_range.length
+    owned = [i for i in range(pf.metadata.num_row_groups)
+             if file_range.start <= row_group_midpoint(
+                 pf.metadata.row_group(i)) < end]
+    t = pa.concat_tables([pf.read_row_group(i) for i in owned])
+    return tuple(t.column(n).to_numpy() for n in ("item", "qty", "price"))
+
+
+def shuffle_manager_check(torch, work: str, fact: str, groups, kernels,
+                          device="cuda"):
+    """One shuffle of the shuffle manager written by both producers: map
+    0 (byte range 0) by write_map_native on the card, map 1 (byte range
+    1) by write_map_batches on the host; every reduce partition reads
+    both, holds only its Spark partition's keys, and the two maps' rows
+    come back exactly once. Then host_partition_ids against K4's ids, bit
+    for bit, at one batch of 16,384 rows and n = 200."""
+    import pyarrow as pa
+
+    from blaze_tpu_torch.batch import ColumnBatch
+    from blaze_tpu_torch.exprs.ir import Col
+    from blaze_tpu_torch.exprs.optimize import bind_opt
+    from blaze_tpu_torch.ops import ParquetScanExec
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.host_shuffle import host_partition_ids
+    from blaze_tpu_torch.ops.shuffle_writer import spark_partition_ids
+    from blaze_tpu_torch.parallel.shuffle_manager import ShuffleManager
+
+    cols = [range_columns(groups[m][0]) for m in (0, 1)]
+    host_batches = pa.table(dict(zip(("item", "qty", "price"),
+                                     cols[1]))).to_batches(1 << 20)
+    mgr = ShuffleManager(os.path.join(work, "shuffle_manager"))
+    h = mgr.register_shuffle(2, SHUFFLE_PARTITIONS, ["item"])
+    scan = ParquetScanExec([[groups[0][0]], [groups[1][0]]])
+    _, native_wall, launches, _ = run_counted(
+        torch, lambda: mgr.write_map_native(h, 0, scan,
+                                            ExecContext(device=device)),
+        kernels)
+    t0 = time.perf_counter()
+    mgr.write_map_batches(h, 1, iter(host_batches))
+    host_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = [list(mgr.read_partition(h, p))
+             for p in range(SHUFFLE_PARTITIONS)]
+    read_wall = time.perf_counter() - t0
+    got = []
+    for p, batches in enumerate(parts):
+        for rb in batches:
+            if not (spark_pids(rb.column(0).to_numpy(),
+                               SHUFFLE_PARTITIONS) == p).all():
+                raise AssertionError(f"shuffle_manager: partition {p} "
+                                     "holds another partition's key")
+            got.append(rb)
+    t = pa.Table.from_batches(got)
+    want = [np.concatenate(c) for c in zip(*cols)]
+    have = [t.column(n).to_numpy() for n in ("item", "qty", "price")]
+    order_w = np.lexsort(want[::-1])
+    order_h = np.lexsort(have[::-1])
+    if t.num_rows != len(want[0]) or not all(
+            np.array_equal(a[order_h], b[order_w])
+            for a, b in zip(have, want)):
+        raise AssertionError(f"shuffle_manager: {t.num_rows} rows read, "
+                             f"{len(want[0])} written, or other rows")
+    if device != "cpu" and launches["murmur3"] <= 0:
+        raise AssertionError("shuffle_manager: the device tier did not "
+                             "launch murmur3")
+
+    rb = pa.record_batch(dict(zip(("item", "qty", "price"),
+                                  (c[:HOST_ID_ROWS] for c in cols[0]))))
+    cb = ColumnBatch.from_arrow(rb, device=device)
+
+    def device_ids(keys):
+        return spark_partition_ids(
+            cb, [bind_opt(Col(k), cb.schema) for k in keys],
+            SHUFFLE_PARTITIONS)[:HOST_ID_ROWS].cpu().numpy()
+
+    for keys in HOST_ID_KEYS:
+        host = host_partition_ids(rb, keys, SHUFFLE_PARTITIONS)
+        dev, _, k4, _ = run_counted(torch, lambda: device_ids(keys),
+                                    kernels)
+        if not np.array_equal(host, dev):
+            raise AssertionError(f"host_partition_ids {keys}: "
+                                 f"{int((host != dev).sum())} ids differ "
+                                 "from K4's")
+        if device != "cpu" and k4["murmur3"] != 1:
+            raise AssertionError(f"{keys}: {k4['murmur3']} K4 launches")
+    emit({"phase": "cluster", "task": "shuffle_manager",
+          "rows": t.num_rows, "native_map_s": native_wall,
+          "host_map_s": host_wall, "read_200_partitions_s": read_wall,
+          "map_bytes": sum(mgr.map_statistics(h)),
+          "host_ids_equal_k4": {"rows": HOST_ID_ROWS,
+                                "partitions": SHUFFLE_PARTITIONS,
+                                "key_sets": [list(k) for k in
+                                             HOST_ID_KEYS]},
+          "launches": launches})
+    mgr.remove_shuffle(h)
+    return {"shuffle_manager": {"launches": launches,
+                                "wall_s": native_wall}}
+
+
+def embed_check(work: str, fact: str, qty, price, device="cuda"):
+    """q6 through the port's C++ embed host (csrc/blaze_embed_main.cpp):
+    CPython hosted in the host process runs the task on the card and
+    exports its batches as Arrow C-Data; the host's checksums equal
+    q6's numpy oracle (COUNT exact, SUM within 1e-9 relative)."""
+    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.runtime import embed
+
+    t0 = time.perf_counter()
+    host = embed.build_host()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(work, "embed_q6.task")
+    with open(path, "wb") as f:
+        f.write(task_to_proto(q6_plan(ParquetScanExec([[FileRange(fact)]]),
+                                      True), 0))
+    t0 = time.perf_counter()
+    r = embed.run_host([path], device=None if device == "cuda" else device)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"embed host exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    (rows, got_sum, got_n), = embed.parse_checksums(r.stdout)
+    exp_sum, exp_n = q6_oracle(qty, price)
+    if rows != 1 or got_n != exp_n or \
+            abs(got_sum - exp_sum) > 1e-9 * abs(exp_sum):
+        raise AssertionError(f"embed q6: got rows {rows}, ({got_sum}, "
+                             f"{got_n}); numpy ({exp_sum}, {exp_n})")
+    emit({"phase": "cluster", "task": "embed", "rows": len(qty),
+          "wall_s": wall, "build_s": build_s,
+          "host": os.path.relpath(host, REPO),
+          "python_config": embed.python_config(),
+          "checksums": [rows, got_sum, got_n],
+          "note": "wall includes the embedded interpreter's start, "
+                  "torch's import and the card's context"})
+
+
 def time_tree(torch, tree: str, rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
@@ -4796,6 +5612,7 @@ def main() -> int:
         res.update(decimal_phase(torch, args.rows, args.grouped_rows,
                                  args.seed, kernels))
         res.update(planner_phase(torch, args.rows, args.seed, kernels))
+        res.update(cluster_phase(torch, args.rows, args.seed, kernels))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check, then timed at the most
@@ -4861,7 +5678,9 @@ def main() -> int:
     slice_tasks = [t for t in res if t.startswith(("window", "sort_",
                                                    "union_limit", "tpcds",
                                                    "dec_", "plan_",
-                                                   "range_sort"))]
+                                                   "range_sort", "ref_",
+                                                   "cluster_", "remote_",
+                                                   "shuffle_manager"))]
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
          "blaze_tpu/ops/kernels/stats_pallas.py:75", "q6", k1_err),

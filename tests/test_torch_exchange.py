@@ -499,9 +499,15 @@ def test_remote_segments_and_range_writers_raise():
     jr = JIpcReader("in", jax_schema(_reader_schema()), 1)
     blob = jax_serde.task_to_proto(jr, 0, file_resources={
         "in": [RemoteSegment("h", 1, "/p", 0, 8)]})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serde.task_from_proto(blob)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a remote segment decodes now (the transport tier is ported) and
+    # encodes back to the JAX package's bytes; a resource that is no
+    # segment still raises
+    op, _, _, res = serde.task_from_proto(blob)
+    (seg,) = res["in"](0)
+    assert (type(seg).__name__, seg.host, seg.port, seg.path, seg.offset,
+            seg.length) == ("RemoteSegment", "h", 1, "/p", 0, 8)
+    assert serde.task_to_proto(op, 0, file_resources={"in": [seg]}) == blob
+    with pytest.raises(TypeError, match="file resource"):
         serde.task_to_proto(IpcReaderExec("in", _reader_schema(), 1), 0,
                             file_resources={"in": [object()]})
     # a range writer decodes now, with its bounds and directions, and

@@ -186,8 +186,10 @@ def test_port_blob_runs_in_jax(tmp_path):
 
 def test_unported_plan_node_raises(tmp_path):
     """Every plan arm decodes, range partitioning included: a JAX range
-    map task writes the same partitions in the port. What the port
-    still refuses is a remote file segment, naming its ROADMAP item."""
+    map task writes the same partitions in the port. A remote file
+    segment, the last thing the port refused here, decodes too since
+    the transport tier is ported: the JAX package's reduce task reads
+    its block over a BlockServer."""
     from blaze_tpu.ops import ShuffleWriterExec as JShuffleWriter
     from blaze_tpu.ops.ipc_reader import IpcReaderExec as JIpcReader
     from blaze_tpu.runtime.transport import RemoteSegment
@@ -216,11 +218,22 @@ def test_unported_plan_node_raises(tmp_path):
     schema = tables[1][0].schema
     from blaze_tpu.types import from_arrow_schema as jax_from_arrow_schema
 
-    blob = jax_task_to_proto(
-        JIpcReader("in", jax_from_arrow_schema(schema), 1), 0,
-        file_resources={"in": [RemoteSegment("h", 1, "/p", 0, 8)]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        execute_task(blob, ExecContext(device="cpu"))
+    from blaze_tpu_torch.runtime.transport import BlockServer
+
+    data = str(tmp_path / "jax.d")
+    off, n = partition_ranges(str(tmp_path / "jax.i"))[0]
+    srv = BlockServer([str(tmp_path)]).start()
+    try:
+        host, port = srv.address
+        blob = jax_task_to_proto(
+            JIpcReader("in", jax_from_arrow_schema(schema), 1), 0,
+            file_resources={"in": [RemoteSegment(host, port, data, off,
+                                                  n)]})
+        got = pa.Table.from_batches(
+            execute_task(blob, ExecContext(device="cpu")))
+    finally:
+        srv.stop()
+    assert_arrow_equal(got, tables[0][0])
 
 
 def test_default_device_is_cuda_and_refuses_without_it(tmp_path):

@@ -80,3 +80,23 @@ def computed_once(tmp_path_factory, name, compute):
         tmp.write_bytes(pickle.dumps(value))
         tmp.replace(path)
         return value
+
+
+def built_once(tmp_path_factory, name, build):
+    """Path of a binary that `build(out_path)` compiles, built once per
+    test session and shared by the xdist workers (under an exclusive
+    lock in the session's shared temporary root)."""
+    import fcntl
+    import os
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / f"built-once-{name}"
+    with open(root / f"built-once-{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = root / f"built-once-{name}.tmp"
+            build(str(tmp))
+            tmp.replace(out)
+    return str(out)
