@@ -102,6 +102,22 @@ _VARIANCE = (AggFn.VAR_SAMP, AggFn.VAR_POP, AggFn.STDDEV_SAMP,
 # defaults for BLAZE_AGG_TIER1 and agg_group_capacity)
 _TIER1_GROUPS = 4096
 _TIER2_GROUPS = 65536
+#: probe rounds of a grouping inside a CUDA graph (the JAX package's
+#: round bound of its sliced tiers, hash_aggregate.py:885-886)
+GRAPH_ROUNDS = 16
+
+
+def group_tiers(capacity: int, group_cap: Optional[int]
+                ) -> List[Optional[int]]:
+    """The group-capacity ladder of a batch (the JAX package's
+    `run_grouped_kernel`): static slot counts to try in turn, None for
+    the batch's whole capacity. `group_cap` None or at least the
+    capacity: one tier."""
+    if group_cap is None or group_cap >= capacity:
+        return [None]
+    if group_cap <= _TIER1_GROUPS:
+        return [group_cap, None]
+    return [_TIER1_GROUPS, group_cap, None]
 
 
 class AggMode(enum.Enum):
@@ -666,45 +682,105 @@ class HashAggregateExec(PhysicalOp):
         ]
         return ColumnBatch(self._schema, out_cols, n)
 
+    def direct_keys(self) -> bool:
+        """One integer (or bool) key: the grouping may take the direct
+        arm (`hash_table.group_slots`)."""
+        if len(self.keys) != 1:
+            return False
+        dt = infer_dtype(self.keys[0][0], self.children[0].schema)
+        return not dt.is_wide_decimal and not dt.is_string_like and \
+            torch_dtype(dt) in (torch.bool, torch.int8, torch.int16,
+                                torch.int32, torch.int64)
+
+    def partial_states(self, schema: Schema, cols, capacity: int,
+                       device, live: torch.Tensor,
+                       group_cap: Optional[int],
+                       rounds: Optional[int] = GRAPH_ROUNDS,
+                       direct: bool = False):
+        """One batch's keyed PARTIAL state columns and its group count,
+        with no host readback: the JAX package's fused batch kernel on
+        the scatter core (`_build_kernel`'s `use_scatter` arm,
+        hash_aggregate.py:776-907), what a CUDA graph replays.
+
+        The states are cut to `out_cap` = `group_cap` slots (or the
+        whole capacity); the count is a device int64 (1,) tensor, and
+        `out_cap` + 1 when the groups outgrow the slots or the probe
+        loop leaves rows after `rounds` rounds. The scatter core
+        compares exact key values, so unlike the JAX package's
+        hash-lane sort it needs no -1 collision sentinel and no
+        lexsort retry: the overflow count is the only retry signal.
+        `rounds` None (an eager run only) probes until every row has a
+        slot, with one readback a round. `direct` (`direct_keys`) runs
+        the direct arm of the grouping alone; a key range that does not
+        fit then gives the count -1, and the caller runs the batch
+        again without it. Keys and arguments are device-typed (the
+        fusion pass's gate, planner/fuse.py)."""
+        ev = DeviceEvaluator(schema, cols, capacity, device)
+        keys_cv = [ev.evaluate(e) for e, _ in self.keys]
+        out_cap = capacity if group_cap is None or group_cap >= capacity \
+            else group_cap
+        slots = _slots(keys_cv, live, capacity, out_cap, rounds, direct)
+        outs, red = _slot_outputs(keys_cv, slots, capacity, out_cap)
+        for a, _ in self.aggs:
+            outs.extend(_agg_state(a, ev, live, red, capacity,
+                                   AggMode.PARTIAL))
+        return [(v.to(torch_dtype(f.dtype)), m)
+                for (v, m), f in zip(outs, self._schema.fields)], slots[3]
+
     def _group(self, ev: DeviceEvaluator, key_exprs: List[ir.Expr],
                live: torch.Tensor, capacity: int):
         """Group slots under the group-capacity ladder; returns the key
         output columns, the keyed reductions and the group count. A
         string key groups by its codes."""
         keys_cv = [ev.evaluate(e) for e in key_exprs]
-        gcap = min(capacity, _TIER2_GROUPS)
-        if gcap >= capacity:
-            tiers: List[Optional[int]] = [None]
-        elif gcap <= _TIER1_GROUPS:
-            tiers = [gcap, None]
-        else:
-            tiers = [_TIER1_GROUPS, gcap, None]
-        full_t = ht.table_size_for(capacity)
-        for gc in tiers:
+        for gc in group_tiers(capacity, min(capacity, _TIER2_GROUPS)):
             out_cap = capacity if gc is None else gc
-            tsize = min(ht.table_size_for(min(capacity, 2 * out_cap)),
-                        full_t)
-            slot, rep_tab, overflow = ht.group_slots(
-                keys_cv, live, capacity, tsize,
-                max_rounds=16 if tsize < full_t else None)
-            occupied = rep_tab != capacity
-            n_groups = torch.where(
-                overflow, torch.full((), out_cap + 1, dtype=torch.int64,
-                                     device=live.device),
-                occupied.sum(dtype=torch.int64))
-            n = host_int(n_groups, "n_groups")
+            slots = _slots(keys_cv, live, capacity, out_cap, None)
+            n = host_int(slots[3], "n_groups")
             if gc is None or n <= gc:
                 break
-        occ = occupied_slots(occupied, out_cap)
-        # each group's first row carries its key values
-        bpos = torch.index_select(rep_tab, 0, occ).clamp(0, capacity - 1)
-        outs = [
-            (torch.index_select(v, 0, bpos),
-             torch.index_select(m, 0, bpos) if m is not None else None)
-            for v, m in keys_cv
-        ]
-        red = _SegOps(slot.to(torch.int32), tsize, occ)
+        outs, red = _slot_outputs(keys_cv, slots, capacity, out_cap)
         return outs, red, n
+
+
+def _slots(keys_cv, live: torch.Tensor, capacity: int, out_cap: int,
+           rounds: Optional[int], direct: bool = False):
+    """The scatter core's grouping of a batch into a table sized for
+    `out_cap` groups: (slot, rep_tab, table size, group count (1,)
+    int64), the count `out_cap` + 1 when the groups outgrow the slots
+    or the probe loop leaves rows. `rounds` runs that many probe rounds
+    with no readback (`hash_table.group_slots(static=True)`), `direct`
+    the direct arm alone (the count -1 when the key range does not
+    fit); None reads the branch and each round back, unbounded on the
+    whole-capacity table and GRAPH_ROUNDS on a sliced one."""
+    full_t = ht.table_size_for(capacity)
+    tsize = min(ht.table_size_for(min(capacity, 2 * out_cap)), full_t)
+    static = rounds is not None
+    if not static and tsize < full_t:
+        rounds = GRAPH_ROUNDS  # a sliced table may not fit every row
+    direct = direct and static
+    slot, rep_tab, overflow = ht.group_slots(
+        keys_cv, live, capacity, tsize, max_rounds=rounds, static=static,
+        direct_only=direct)
+    n = torch.where(overflow, torch.full((), -1 if direct else out_cap + 1,
+                                         dtype=torch.int64,
+                                         device=live.device),
+                    (rep_tab != capacity).sum(dtype=torch.int64))
+    return slot, rep_tab, tsize, n.reshape(1)
+
+
+def _slot_outputs(keys_cv, slots, capacity: int, out_cap: int):
+    """The key output columns (each group's first row) and the keyed
+    reductions over the table's raw slot domain, taken at the occupied
+    slots (K2) in slot order."""
+    slot, rep_tab, tsize, _ = slots
+    occ = occupied_slots(rep_tab != capacity, out_cap)
+    # each group's first row carries its key values
+    bpos = torch.index_select(rep_tab, 0, occ).clamp(0, capacity - 1)
+    outs = [(torch.index_select(v, 0, bpos),
+             torch.index_select(m, 0, bpos) if m is not None else None)
+            for v, m in keys_cv]
+    return outs, _SegOps(slot.to(torch.int32), tsize, occ)
 
 
 def _unique_key_dictionaries(cb: ColumnBatch, key_exprs) -> ColumnBatch:

@@ -30,7 +30,15 @@ key|row entries are int64 (`insert_kr`).
 
 `lax.while_loop` and `lax.cond` become host control flow: one blocking
 readback per probe round (`active.any()`) and one for the direct-or-hash
-branch, each counted in runtime/dispatch under its cause.
+branch, each counted in runtime/dispatch under its cause. Inside a CUDA
+graph (ops/fused.py) no readback may run, so `static=True` takes the
+graph's form instead: `insert` and `group_slots` run exactly
+`max_rounds` probe rounds and report rows left over as a device
+`overflow` flag, and `group_slots` computes both the direct and the
+hashed slots and selects one with `torch.where` (the arms of the JAX
+package's `lax.cond`). The joins' lookups take a `rounds` count, which
+`probe_rounds` computes once per table: the longest probe any key
+can walk before an empty slot, so a fixed-round lookup is exact.
 """
 
 from __future__ import annotations
@@ -141,12 +149,16 @@ def _keys_at(key_cols: KeyCols, idx: torch.Tensor) -> List:
 
 def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
            capacity: int, table_size: int, null_equal: bool,
-           max_rounds: Optional[int] = None, sync: str = "insert_round"):
+           max_rounds: Optional[int] = None, sync: str = "insert_round",
+           static: bool = False, want_dup: bool = True):
     """Insert all live rows; equal keys share one slot.
 
     `max_rounds` bounds the probe loop for undersized tables: when it
     trips, the leftover rows surface in `overflow` and the caller
     re-runs with a larger table. `sync` names the per-round readback.
+    `static` runs exactly `max_rounds` rounds with no readback (inside
+    a CUDA graph); `want_dup=False` skips the duplicate flag (a grouping
+    never reads it) and returns a constant False for it.
 
     Returns (slot, rep_tab, dup, overflow):
       slot     int64[capacity]   resolved slot per row (0 for dead rows)
@@ -166,9 +178,11 @@ def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
     final_slot = torch.zeros(cap, dtype=torch.int64, device=dev)
     active = live.clone()
     dup = torch.zeros((), dtype=torch.bool, device=dev)
+    if static and max_rounds is None:
+        raise ValueError("insert: a static insert needs max_rounds")
     r = 0
     while (max_rounds is None or r < max_rounds) and \
-            host_bool(active.any(), sync):
+            (static or host_bool(active.any(), sync)):
         slot = _tri_slot(u0, r, mask)
         occupant = torch.index_select(tab, 0, slot)
         # claim only empty slots: occupied slots are immutable, which
@@ -181,7 +195,8 @@ def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
         for (bv, bm), (sv, sm) in zip(_keys_at(key_cols, reps), key_cols):
             ok = ok & _pairwise_eq(sv, sm, bv, bm, null_equal)
         found = active & ok
-        dup = dup | (found & (rep != rowidx)).any()
+        if want_dup:
+            dup = dup | (found & (rep != rowidx)).any()
         final_slot = torch.where(found, slot, final_slot)
         active = active & ~found
         r += 1
@@ -189,13 +204,20 @@ def insert(h: torch.Tensor, key_cols: KeyCols, live: torch.Tensor,
 
 
 def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
-                table_size: int, max_rounds: Optional[int] = None):
+                table_size: int, max_rounds: Optional[int] = None,
+                static: bool = False, direct_only: bool = False):
     """Slot assignment for grouping (NULL groups with NULL).
 
     A single integer (or bool) key whose live range fits the table takes
     the direct branch: slot = value - min(value), one reserved slot for
     NULL, no probing. Otherwise, and for several keys or float keys,
-    rows hash-insert. The branch is data-dependent: one host readback.
+    rows hash-insert. The branch is data-dependent: one host readback;
+    with `static` (inside a CUDA graph) both arms run and `torch.where`
+    picks one, and the hash insert runs exactly `max_rounds` rounds.
+    `direct_only` (static, a single integer key) runs the direct arm
+    alone, without the hash arm's probe rounds, and `overflow` then
+    means the range did not fit: the caller runs the batch again with
+    both arms.
 
     Returns (slot int64[capacity], rep_tab int32[table_size], overflow)."""
     cap = capacity
@@ -205,8 +227,9 @@ def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
 
     def hash_insert():
         h = cheap_hash(key_cols, cap)
-        slot, tab, _dup, overflow = insert(h, key_cols, live, cap,
-                                           table_size, True, max_rounds)
+        slot, tab, _dup, overflow = insert(
+            h, key_cols, live, cap, table_size, True, max_rounds,
+            static=static, want_dup=False)
         return slot, tab, overflow
 
     if not single_int:
@@ -226,7 +249,7 @@ def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
     # >= 0 test rejects
     need = diff + (2 if m is not None else 1)
     in_range = (diff >= 0) & (need <= table_size) & valid.any()
-    if not host_bool(in_range, "group_branch"):
+    if not static and not host_bool(in_range, "group_branch"):
         return hash_insert()
     # int8/int16 widen first: their own span can overflow the narrow
     # dtype; invalid rows may wrap but take the null slot below
@@ -239,7 +262,15 @@ def group_slots(key_cols: KeyCols, live: torch.Tensor, capacity: int,
     tab = torch.full((table_size,), cap, dtype=torch.int32,
                      device=live.device)
     tab.scatter_reduce_(0, slot, cand, "amin")
-    return slot, tab, torch.zeros((), dtype=torch.bool, device=live.device)
+    no_overflow = torch.zeros((), dtype=torch.bool, device=live.device)
+    if not static:
+        return slot, tab, no_overflow
+    if direct_only:
+        return slot, tab, ~in_range
+    h_slot, h_tab, h_overflow = hash_insert()
+    return (torch.where(in_range, slot, h_slot),
+            torch.where(in_range, tab, h_tab),
+            ~in_range & h_overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -315,13 +346,41 @@ def insert_kr(k32: torch.Tensor, h: torch.Tensor, live: torch.Tensor,
     return tab, dup
 
 
+def _more_rounds(r: int, active: torch.Tensor,
+                 rounds: Optional[int]) -> bool:
+    """Whether a lookup runs probe round r: every round below `rounds`
+    when the table's bound is known (no readback), else the first two
+    and then while a probe row is unresolved (one readback a round)."""
+    if rounds is not None:
+        return r < rounds
+    return r < 2 or host_bool(active.any(), "join_probe_round")
+
+
+def probe_rounds(tab: torch.Tensor, empty: int) -> int:
+    """The probe rounds that resolve every lookup in `tab`: for each home
+    slot, the rounds of its triangular sequence up to and including its
+    first empty slot, at most. A probe row stops at its match or at that
+    empty slot, so a lookup of exactly this many rounds is exact. One
+    readback a round, once per table (`d2h_syncs.join_chain_round`)."""
+    mask = tab.shape[0] - 1
+    home = torch.arange(tab.shape[0], dtype=torch.int64, device=tab.device)
+    active = torch.ones(tab.shape[0], dtype=torch.bool, device=tab.device)
+    r = 0
+    while host_bool(active.any(), "join_chain_round"):
+        occupant = torch.index_select(tab, 0, _tri_slot(home, r, mask))
+        active = active & (occupant != empty)
+        r += 1
+    return r
+
+
 def lookup_kr(tab: torch.Tensor, k32: torch.Tensor, h: torch.Tensor,
-              probe_live: torch.Tensor):
+              probe_live: torch.Tensor, rounds: Optional[int] = None):
     """Probe a fused key|row table: one gather and one compare a round.
     Returns (match_idx int32, -1 where unmatched; matched bool). The
     JAX package runs the rounds past the second on a compacted tail;
     every round here runs at full width, which gives the same
-    match_idx."""
+    match_idx. `rounds` (the table's `probe_rounds`) runs that many
+    rounds with no readback."""
     mask = tab.shape[0] - 1
     u0 = h & mask
     active = probe_live
@@ -329,7 +388,7 @@ def lookup_kr(tab: torch.Tensor, k32: torch.Tensor, h: torch.Tensor,
     r = 0
     # the first two rounds resolve nearly every probe: no readback
     # before the third
-    while r < 2 or host_bool(active.any(), "join_probe_round"):
+    while _more_rounds(r, active, rounds):
         slot = _tri_slot(u0, r, mask)
         entry = torch.index_select(tab, 0, slot)
         is_empty = entry == KR_EMPTY
@@ -386,17 +445,18 @@ def direct_table_size(span: int) -> int:
 def lookup(rep_tab: torch.Tensor, h_probe: torch.Tensor,
            probe_key_cols: KeyCols, build_key_cols: KeyCols,
            probe_live: torch.Tensor, build_capacity: int,
-           null_equal: bool = False):
+           null_equal: bool = False, rounds: Optional[int] = None):
     """Each probe row's build row (the first inserted row of its key),
     walking the probe chain to the first empty slot. Returns (match_idx
-    int32, -1 where unmatched; matched bool)."""
+    int32, -1 where unmatched; matched bool). `rounds` as in
+    `lookup_kr`."""
     mask = rep_tab.shape[0] - 1
     u0 = h_probe & mask
     active = probe_live
     match = torch.full(h_probe.shape, -1, dtype=torch.int32,
                        device=h_probe.device)
     r = 0
-    while r < 2 or host_bool(active.any(), "join_probe_round"):
+    while _more_rounds(r, active, rounds):
         slot = _tri_slot(u0, r, mask)
         rep = torch.index_select(rep_tab, 0, slot)
         is_empty = rep == build_capacity

@@ -46,13 +46,20 @@ package's words, as it refuses them (blaze_tpu/ops/joins.py:118-120).
 from __future__ import annotations
 
 import enum
+import itertools
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from blaze_tpu_torch.batch import Column, ColumnBatch, row_mask, zero_values
+from blaze_tpu_torch.batch import (
+    Column,
+    ColumnBatch,
+    row_mask,
+    torch_dtype,
+    zero_values,
+)
 from blaze_tpu_torch.config import get_config, resolve_join_core
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.ops import hash_table as ht
@@ -69,6 +76,7 @@ from blaze_tpu_torch.runtime.dispatch import host_bool, host_int, host_ints
 from blaze_tpu_torch.types import DataType, Field, Schema
 
 _INT_KEYS = (torch.int8, torch.int16, torch.int32, torch.int64)
+_CORE_TOKENS = itertools.count()
 
 
 class JoinType(enum.Enum):
@@ -209,6 +217,11 @@ class _JoinCore:
         self._table_demoted = False
         # a probe key the kr or direct table cannot take: generic table
         self._force_generic = False
+        # the probe rounds that resolve every lookup in the table
+        # (`table_state_static`), and a name for this core's table in
+        # the fused join's graph keys (a graph reads its addresses)
+        self._rounds: Optional[int] = None
+        self.token = next(_CORE_TOKENS)
 
     def _build_key_cols(self) -> List[Column]:
         """The build key columns; a string key on a dictionary holding
@@ -276,7 +289,49 @@ class _JoinCore:
 
     def _set_index(self, mode: str, index) -> None:
         self._index = (mode, index)
+        self._rounds = None
         dispatch.record("join_core." + mode)
+
+    def table_state_static(self, probe_keys: List[int], probe_schema):
+        """The table core's state for the fused join+aggregate (the JAX
+        package's `_JoinCore.table_state_static`, joins.py:459), decided
+        from the probe fields' types alone, since the probe keys are
+        evaluated inside the consumer's graph: (mode, index, rounds) for
+        the unique-build table cores `table_direct`, `table_kr` and
+        `table`, where `rounds` (None for the direct table) is the probe
+        rounds that resolve every lookup (`hash_table.probe_rounds`,
+        once per table). None for string keys on either side, wide
+        decimal probe keys and the sorted core (repeated build keys or
+        `join_core="sort"`): the caller materializes the pairs. A probe
+        dtype the kr or direct table cannot take rebuilds the generic
+        table, as `probe` does."""
+        build_cols = self._build_key_cols()
+        if any(c.dtype.is_string_like for c in build_cols):
+            return None
+        fields = [probe_schema.fields[i] for i in probe_keys]
+        if any(f.dtype.is_string_like or f.dtype.is_wide_decimal
+               for f in fields):
+            return None
+        p_dtypes = [torch_dtype(f.dtype) for f in fields]
+        with self._index_lock:
+            self._ensure_index(build_cols)
+            mode = self._index[0]
+            if (mode == "table_direct"
+                    and not all(dt in _INT_KEYS for dt in p_dtypes)) or (
+                    mode == "table_kr" and not all(
+                        b.values.dtype == dt
+                        for b, dt in zip(build_cols, p_dtypes))):
+                self._force_generic = True
+                self._index = None
+                self._ensure_index(build_cols)
+            mode, index = self._index
+            if mode == "sorted":
+                return None
+            if mode != "table_direct" and self._rounds is None:
+                empty = ht.KR_EMPTY if mode == "table_kr" \
+                    else self.build.capacity
+                self._rounds = ht.probe_rounds(index, empty)
+            return mode, index, self._rounds
 
     def _check_probe_dtypes(self, build_cols: List[Column],
                             probe_cols: List[Column]) -> None:

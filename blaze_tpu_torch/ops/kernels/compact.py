@@ -33,7 +33,9 @@ import torch
 
 from blaze_tpu_torch.runtime import dispatch
 
-#: launches of the CUDA kernel (the plain version never counts)
+#: launches of the CUDA kernel (the plain version never counts); a
+#: launch inside a CUDA graph counts at each replay
+#: (runtime/dispatch.launched), not at capture
 LAUNCHES = 0
 
 # rows per look-back tile, bytes per vector load, the most rows of the
@@ -95,13 +97,18 @@ def layout(n: int, head: int) -> Tuple[int, int, int]:
     return tiles, live_at, live_at + 4 + (16 + 8 * tiles) // 4
 
 
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    dispatch.record("launch.compact_perm")
+
+
 def _launch(keep: torch.Tensor, nblocks: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel; `nblocks` forces the look-back kernel's grid
     (to check it at any grid), where None takes _BLOCKS_PER_SM an SM."""
     from blaze_tpu_torch.ops.kernels import _build
 
-    global LAUNCHES
     fn = _library()
     dev = keep.device
     n = keep.numel()
@@ -114,8 +121,7 @@ def _launch(keep: torch.Tensor, nblocks: Optional[int] = None
     err = fn(ptr, n, tiles, nblocks, base, base + 4 * live_at,
              base + 4 * (live_at + 4), _build.stream(dev))
     _build.check(err, "compact_perm")
-    LAUNCHES += 1
-    dispatch.record("launch.compact_perm")
+    dispatch.launched(_count)
     return buf[:n], buf[live_at:live_at + 1]
 
 

@@ -40,7 +40,9 @@ import torch
 
 from blaze_tpu_torch.runtime import dispatch
 
-#: launches of the CUDA kernel (the plain version never counts)
+#: launches of the CUDA kernel (the plain version never counts); a
+#: launch inside a CUDA graph counts at each replay
+#: (runtime/dispatch.launched), not at capture
 LAUNCHES = 0
 
 # column dtype codes of the C entry (csrc/segreduce.cu `Src`)
@@ -176,6 +178,12 @@ def _grid(kind: str, n: int, k: int, keysize: int, sms: int):
     return min(row_blocks, sms * per_sm), threads
 
 
+def _count() -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    dispatch.record("launch.segreduce")
+
+
 def _launch(op: str, gid: torch.Tensor, values: torch.Tensor, k: int,
             contrib: Optional[torch.Tensor] = None,
             at: Optional[torch.Tensor] = None,
@@ -184,7 +192,6 @@ def _launch(op: str, gid: torch.Tensor, values: torch.Tensor, k: int,
     where None takes `variant`'s choice."""
     from blaze_tpu_torch.ops.kernels import _build
 
-    global LAUNCHES
     fn = _library()
     n = values.numel()
     dev = values.device
@@ -204,8 +211,7 @@ def _launch(op: str, gid: torch.Tensor, values: torch.Tensor, k: int,
              None if at is None else out.data_ptr(), _VARIANTS[kind],
              nblocks, threads, _build.stream(dev))
     _build.check(err, f"segment_{op}")
-    LAUNCHES += 1
-    dispatch.record("launch.segreduce")
+    dispatch.launched(_count)
     return out
 
 

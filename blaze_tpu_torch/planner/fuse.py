@@ -10,24 +10,29 @@ down and rewrites:
 - a keyless PARTIAL aggregate into a `FusedAggregateExec` over its
   chain (one state row for the stream, from the keyless carry);
 - a keyless COMPLETE aggregate into that carry plus a
-  `HostFinalAggExec`, as the JAX package's COMPLETE rewrite does;
-- a stage or an aggregate that lowers a string node to the host
-  (ops/host_lower.py) is never folded: host pyarrow work cannot replay
-  in a graph, so it runs op by op (the JAX package refuses such folds
-  the same way);
-- a keyed aggregate keeps its `HashAggregateExec` over a
-  `FusedPipelineExec` of its chain: grouping syncs with the host
-  (`d2h_syncs.group_branch`, `.insert_round`, `.n_groups`), so a keyed
-  batch is not one graph yet (ROADMAP 'Modules to port' item 1, the
-  grouped carry). So does a keyless aggregate with FIRST or LAST,
-  whose states do not merge in a carry;
-- a join (hash, sort-merge, streaming sort-merge) stays in place, and
-  the Filter/Project chain under each child becomes a
-  `FusedPipelineExec`: on the build side even a single stage, as the
-  JAX package's `_fuse_join_under_agg` does (the build relation is
-  collected once), on the probe side a chain of two or more. The
-  JAX package's fused join+aggregate program (the probe folded into
-  the aggregate's kernel) waits for item 1 with the grouped carry;
+  `HostFinalAggExec`, as the JAX package's COMPLETE rewrite does; a
+  keyless one with FIRST or LAST, whose states do not merge in a carry,
+  keeps its `HashAggregateExec` over a `FusedPipelineExec` of its chain;
+- a keyed PARTIAL aggregate over a chain of one stage or more into a
+  `FusedAggregateExec` (one graph replay a batch, its states on the
+  device); with no chain it stays as it is, as in the JAX package;
+- a keyed COMPLETE aggregate into a keyed `FusedAggregateExec` with
+  `fetch_host` (the grouped carry) under a `HostFinalAggExec`, even
+  over an empty chain (the JAX package's keyed COMPLETE rewrite);
+- an aggregate whose keys or arguments are strings (dictionary codes),
+  or lower a node to the host (ops/host_lower.py), is never folded:
+  host pyarrow work cannot replay in a graph, and the JAX package's
+  `_agg_exprs_fusable` refuses them the same way;
+- an INNER hash join directly under a fused aggregate's chain
+  (`_fuse_join_under_agg`): its build chain becomes one pipeline, even
+  of one stage, and its probe chain a pipeline recorded on the join as
+  `_fused_probe`, which the aggregate folds into its own graph (the
+  probe, the table lookup and the build gather in the aggregate's
+  replay);
+- every other join (hash, sort-merge, streaming sort-merge) stays in
+  place, and the Filter/Project chain under each child becomes a
+  `FusedPipelineExec`: on the build side even a single stage, on the
+  probe side a chain of two or more;
 - a keyless COMPLETE aggregate directly over a window becomes
   `HostFinalAggExec(FusedWindowAggExec)`: the whole task in one pass
   (the JAX package's COMPLETE-over-Window rewrite);
@@ -35,7 +40,9 @@ down and rewrites:
   (`WindowExec._fused_pipeline`; no Filter, since the window's sort
   sees every input row).
 
-Every other node is left in place with its children rewritten.
+Every other node is left in place with its children rewritten. A keyed
+`HostFinalAggExec` that is not the root of the plan copies its host
+result to the device for the operator above it (`to_device`).
 """
 
 from __future__ import annotations
@@ -73,12 +80,75 @@ def _fuse_chain(op: PhysicalOp, min_stages: int) -> PhysicalOp:
 
     chain, leaf = _collect_chain(op)
     if len(chain) >= min_stages:
-        return FusedPipelineExec(fuse_pipelines(leaf),
+        return FusedPipelineExec(_fuse(leaf),
                                  list(reversed(chain)))
-    return fuse_pipelines(op)
+    return _fuse(op)
+
+
+def _agg_exprs_fusable(agg) -> bool:
+    """Whether an aggregate's keys and arguments can run in a graph (the
+    JAX package's `_agg_exprs_fusable`, planner/fuse.py:67): none lowers
+    a node to the host and none is a string (the port's dictionary
+    codes, which the JAX package refuses as dictionary-encoded)."""
+    from blaze_tpu_torch.exprs.typing import infer_dtype
+
+    if agg._host:
+        return False
+    schema = agg.children[0].schema
+    exprs = [e for e, _ in agg.keys] + [
+        a.child for a, _ in agg.aggs if a.child is not None]
+    return not any(infer_dtype(e, schema).is_string_like for e in exprs)
+
+
+def _fuse_join_under_agg(join) -> None:
+    """An INNER hash join that feeds a fused aggregate (the JAX package's
+    `_fuse_join_under_agg`): the build side's chain becomes one
+    FusedPipelineExec, even of one stage (the build relation is
+    collected once); the probe side's chain becomes a FusedPipelineExec
+    that is both the join's probe child and `_fused_probe = (leaf,
+    pipeline)`, which the aggregate folds into its own graph. The join
+    itself stays in place for the paths that read no attachment."""
+    from blaze_tpu_torch.ops.fused import FusedPipelineExec
+
+    bchain, bleaf = _collect_chain(join.children[0])
+    if bchain:
+        join.children[0] = FusedPipelineExec(_fuse(bleaf),
+                                             list(reversed(bchain)))
+    else:
+        join.children[0] = _fuse(join.children[0])
+    pchain, pleaf = _collect_chain(join.children[1])
+    if pchain:
+        pleaf = _fuse(pleaf)
+        pipe = FusedPipelineExec(pleaf, list(reversed(pchain)))
+        join.children[1] = pipe
+        join._fused_probe = (pleaf, pipe)
+    else:
+        join.children[1] = _fuse(join.children[1])
+
+
+def _fuse_agg_leaf(leaf: PhysicalOp) -> PhysicalOp:
+    """The pass below a fused aggregate's chain: an INNER hash join gets
+    its chains fused around it (`_fuse_join_under_agg`), anything else
+    the generic pass."""
+    from blaze_tpu_torch.ops.joins import HashJoinExec, JoinType
+
+    if isinstance(leaf, HashJoinExec) and leaf.join_type is JoinType.INNER:
+        _fuse_join_under_agg(leaf)
+        return leaf
+    return _fuse(leaf)
 
 
 def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
+    """The pass over a plan whose root is `op` (module docstring)."""
+    from blaze_tpu_torch.ops.fused import HostFinalAggExec
+
+    out = _fuse(op)
+    if isinstance(out, HostFinalAggExec):
+        out.to_device = False  # the task boundary reads it on the host
+    return out
+
+
+def _fuse(op: PhysicalOp) -> PhysicalOp:
     from blaze_tpu_torch.ops.fused import (
         FusedAggregateExec,
         FusedPipelineExec,
@@ -92,6 +162,18 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
     if isinstance(op, HashAggregateExec) and \
             op.mode in (AggMode.PARTIAL, AggMode.COMPLETE):
         chain, leaf = _collect_chain(op.children[0])
+        if op.keys and _agg_exprs_fusable(op) and (
+                chain or op.mode is AggMode.COMPLETE):
+            pipeline = FusedPipelineExec(_fuse_agg_leaf(leaf),
+                                         list(reversed(chain)))
+            if op.mode is AggMode.PARTIAL:
+                return FusedAggregateExec(pipeline, op)
+            partial = HashAggregateExec(pipeline, keys=list(op.keys),
+                                        aggs=list(op.aggs),
+                                        mode=AggMode.PARTIAL)
+            return HostFinalAggExec(
+                FusedAggregateExec(pipeline, partial, fetch_host=True), op,
+                to_device=True)
         if op.mode is AggMode.COMPLETE and not op.keys and not chain \
                 and not op._host and isinstance(leaf, WindowExec):
             # a keyless rollup directly over a window: the whole task -
@@ -99,14 +181,14 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
             # aggregate - in one pass. (The JAX package first checks
             # that the window's sort needs no host; the port's
             # WindowExec refuses such keys when it is built.)
-            win = fuse_pipelines(leaf)
+            win = _fuse(leaf)
             partial = HashAggregateExec(win, keys=[], aggs=list(op.aggs),
                                         mode=AggMode.PARTIAL)
             return HostFinalAggExec(FusedWindowAggExec(win, partial), op)
         if not op.keys and not op._host \
                 and keyless_merge_plan(op.aggs,
                                        op.children[0].schema) is not None:
-            pipeline = FusedPipelineExec(fuse_pipelines(leaf),
+            pipeline = FusedPipelineExec(_fuse(leaf),
                                          list(reversed(chain)))
             partial = HashAggregateExec(pipeline, keys=[],
                                         aggs=list(op.aggs),
@@ -116,13 +198,13 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
             return HostFinalAggExec(
                 FusedAggregateExec(pipeline, partial, fetch_host=True), op)
         if chain:
-            op.children = [FusedPipelineExec(fuse_pipelines(leaf),
+            op.children = [FusedPipelineExec(_fuse(leaf),
                                              list(reversed(chain)))]
             return op
     if isinstance(op, WindowExec) and op._fused_pipeline is None:
         chain, leaf = _collect_chain(op.children[0], allow_filter=False)
         if chain:
-            leaf = fuse_pipelines(leaf)
+            leaf = _fuse(leaf)
             op.children = [leaf]
             op._fused_pipeline = FusedPipelineExec(leaf,
                                                    list(reversed(chain)))
@@ -135,6 +217,6 @@ def fuse_pipelines(op: PhysicalOp) -> PhysicalOp:
         return op
     chain, t = _collect_chain(op)
     if len(chain) >= 2:
-        return FusedPipelineExec(fuse_pipelines(t), list(reversed(chain)))
-    op.children = [fuse_pipelines(c) for c in op.children]
+        return FusedPipelineExec(_fuse(t), list(reversed(chain)))
+    op.children = [_fuse(c) for c in op.children]
     return op

@@ -20,7 +20,16 @@ Keys in use:
   build keys repeat, once per table built), `.join_insert_round` (one
   per round of a join table's insert), `.join_probe_round` (one per
   lookup round past the second) and `.join_pairs` (the sorted core's
-  pair count, once per probe batch);
+  pair count, once per probe batch), `.join_chain_round` (one per
+  round of a table's probe-round bound, once per table the fused join
+  probes);
+- the keyed fusion's (ops/fused.py): `d2h_syncs.carry_guard` (the
+  grouped carry's overflow guard, once per batch of a stream of two
+  batches or more), `d2h_syncs.n_groups` (a per-batch state batch's
+  group count), `carry_demotions` (a carry that outgrew its slots and
+  left as a device partial batch), `group_round_overflow` (a batch
+  whose grouping left rows after the graph's probe rounds at its top
+  tier and ran once more eagerly);
 - `join_core.<core>`: which join core a build relation took
   (`table_direct`, `table_kr`, `table`, `sorted`);
 - the sort tier's (ops/util.py, ops/sort.py): `sort_core.<packed|
@@ -41,7 +50,12 @@ Keys in use:
 It also keeps the fused operators' CUDA graphs (`GraphCache`), the
 counterpart of the JAX package's `cached_kernel`
 (blaze_tpu/runtime/dispatch.py): one captured graph per stage structure
-and batch layout, replayed for every batch that has them.
+and batch layout, replayed for every batch that has them. A keyed
+aggregate's key also names its keys, functions and state fields, its
+group-capacity tier, and for the grouped carry whether the graph reads
+a previous carry, the carry's slot count and the batch's; a fused
+join's names its table core (mode, probe rounds, and the core itself,
+whose build the graph reads).
 """
 
 from __future__ import annotations

@@ -14,10 +14,12 @@
                                      # tpcds_customer)
     python3 chip_smoke.py --rows N --grouped-rows M --string-rows S
                                      # other depths
-    python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6 and
-                                          # select tasks of another
-                                          # checkout against this one,
-                                          # timed
+    python3 chip_smoke.py --compare DIR   # K1, K2, K3 and the q6,
+                                          # select, grouped,
+                                          # grouped_partial, join_agg
+                                          # and join_kr tasks of
+                                          # another checkout against
+                                          # this one, timed
 
 Phases, one JSON line each:
 
@@ -86,9 +88,13 @@ Phases, one JSON line each:
    COMPLETE SUM/MIN/MAX(price), AVG(qty); bench.py's grouped_agg) and
    through its map-side form (a PARTIAL task, then FINAL over its state
    batches), both against bench.py's numpy bincount/reduceat oracle in
-   float64. Each kernel's launch count is zeroed before the task it
-   serves and must be > 0 after it. Each task then runs once more under
-   torch.profiler for its device busy time.
+   float64. The grouped task runs the grouped carry: one graph replay a
+   batch, none op by op, at most one readback a batch (the overflow
+   guard) and exactly one fetch; the PARTIAL task one replay a batch
+   (`fusion`, `syncs_per_batch`). Each kernel's launch count is zeroed
+   before the task it serves and must be > 0 after it (K2 and K3
+   counted at each replay of the graphs that hold them). Each task then
+   runs once more under torch.profiler for its device busy time.
    Then the exchange, over the same `--rows` cut into 4 parquet splits:
    - exchange_agg: Spark's two-stage plan of bench.py's grouped_agg with
      spark.sql.shuffle.partitions 200: 4 map TaskDefinitions (scan ->
@@ -100,8 +106,11 @@ Phases, one JSON line each:
      200), then 200 reduce tasks (IpcReader -> Arrow); each partition
      holds exactly the rows numpy's Spark hash sends there, in order;
    - grace: one keyed COMPLETE GROUP BY item (131,072 keys) over all
-     `--rows` rows, past max_materialize_rows, so grace buckets it
-     through K4; equal to a numpy oracle; its bucket counters printed.
+     `--rows` rows: it starts in the grouped carry, whose 16,384 slots
+     it outgrows, so the carry must demote (`carry_demotions` >= 1);
+     the per-batch states then pass max_materialize_rows in the device
+     FINAL, so grace buckets them through K4; equal to a numpy oracle;
+     its bucket counters printed.
    Each prints its wall, rows/s, launches, transfers and syncs;
    exchange_agg and repartition (whose 200 reduce tasks dominate) run
    once, under torch.profiler (grace's profiled rerun is cut for the
@@ -113,10 +122,13 @@ Phases, one JSON line each:
      aggregate holds the join's whole output (max_materialize_rows =
      the row count). Per brand COUNT equal to numpy's
      bincount(i_brand[item]), SUM within 1e-9 relative of float64
-     numpy; the join must take the dense direct table;
+     numpy; the join must take the dense direct table, and the probe
+     fold into the aggregate's graph: one replay a probe batch, none op
+     by op, at most one readback a probe batch past the build's;
    - join_kr: the same with both keys times 16 (the span past 8x the
-     build rows): the fused key|row table (not profiled again since the
-     planner slice, for the script's time);
+     build rows): the fused key|row table, with the same gates (and a
+     replay a build batch for the build's Project) (not profiled again
+     since the planner slice, for the script's time);
    - join_sorted: `--grouped-rows` rows against the dimension with
      every row twice: the sorted core, K4's `hashes` on both sides;
      COUNT and SUM twice numpy's;
@@ -1293,6 +1305,42 @@ def check_fused(task: str, counts) -> None:
                              f"replays, {n} H2D copies, no eager batch")
 
 
+def check_keyed_fused(task: str, counts, batches: int, syncs: int,
+                      fetches=None, other_replays: int = 0) -> None:
+    """A keyed fused task (the grouped carry or the fused join): one
+    graph replay a batch (and `other_replays`: a join build chain's), no
+    batch run op by op, at most one readback a batch (`syncs`: the
+    task's readbacks beyond a join build's) and, when `fetches` is
+    given, exactly that many D2H fetches."""
+    replays = batches + other_replays
+    if (counts["graph_replays"] != replays
+            or counts["graph_eager_batches"] != 0 or syncs > batches
+            or (fetches is not None and counts["d2h_fetches"] != fetches)):
+        raise AssertionError(
+            f"{task}: {counts}, {syncs} readbacks - expected {replays} "
+            f"graph replays, no eager batch, at most {batches} readbacks"
+            + ("" if fetches is None else f", {fetches} fetch"))
+
+
+def check_replays(task: str, counts) -> None:
+    """One graph replay a scan batch."""
+    if counts["graph_replays"] != counts["batches"]:
+        raise AssertionError(f"{task}: {counts} - expected "
+                             f"{counts['batches']} graph replays")
+
+
+#: a join build's readbacks: its key span, duplicate check, insert
+#: rounds and the probe-round bound of its table
+BUILD_SYNCS = ("d2h_syncs.join_keyspan", "d2h_syncs.join_dup",
+               "d2h_syncs.join_insert_round", "d2h_syncs.join_chain_round")
+
+
+def probe_syncs(transfers) -> int:
+    """A join task's readbacks past its build's (BUILD_SYNCS)."""
+    return transfers.get("d2h_syncs", 0) - sum(
+        transfers.get(k, 0) for k in BUILD_SYNCS)
+
+
 # ---------------------------------------------------------------------------
 # the graph phase: CUDA graphs of the fused keyless aggregate
 # ---------------------------------------------------------------------------
@@ -1917,12 +1965,19 @@ def grouped_phase(torch, rows: int, seed: int, kernels):
         for name in ("segment_reduce", "compact_perm"):
             if launches[name] <= 0:
                 raise AssertionError(f"grouped did not launch {name}")
+        # the grouped carry: one replay a batch, the guard's readback a
+        # batch, one fetch at the end
+        fusion = fusion_counts(transfers, rows)
+        check_keyed_fused("grouped", fusion, fusion["batches"],
+                          transfers.get("d2h_syncs", 0), fetches=1)
         results["grouped"] = {"launches": launches, "wall_s": wall}
         emit({"phase": "path", "task": "grouped", "rows": rows,
               "groups": len(exp["g"]), "parquet_write_s": write_s,
               "wall_s": wall, "rows_per_s": rows / wall,
               "sum_max_rel_err": err, "launches": launches,
-              "transfers": transfers})
+              "transfers": transfers, "fusion": fusion,
+              "syncs_per_batch": transfers.get("d2h_syncs", 0)
+              / fusion["batches"]})
         profile_task(torch, blob, "grouped", wall)
 
         partial = grouped_plan(scan, AggMode.PARTIAL)
@@ -1940,13 +1995,18 @@ def grouped_phase(torch, rows: int, seed: int, kernels):
         for name in ("segment_reduce", "compact_perm"):
             if launches[name] <= 0:
                 raise AssertionError(f"grouped_partial did not launch {name}")
+        # the PARTIAL task: one replay a batch (the FINAL runs no graph)
+        fusion = fusion_counts(transfers, rows)
+        check_replays("grouped_partial", fusion)
         results["grouped_partial"] = {"launches": launches, "wall_s": wall}
         emit({"phase": "path", "task": "grouped_partial", "rows": rows,
               "state_batches": len(states),
               "state_rows": sum(b.num_rows for b in states),
               "groups": table.num_rows, "wall_s": wall,
               "rows_per_s": rows / wall, "sum_max_rel_err": err,
-              "launches": launches, "transfers": transfers})
+              "launches": launches, "transfers": transfers,
+              "fusion": fusion, "syncs_per_batch":
+              transfers.get("d2h_syncs", 0) / fusion["batches"]})
         profile_run(torch, two_phase, "grouped_partial", wall)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2192,8 +2252,14 @@ def exchange_phase(torch, rows: int, seed: int, kernels):
         for name in ("segment_reduce", "compact_perm"):
             if launches[name] <= 0:
                 raise AssertionError(f"grace did not launch {name}")
+        # 131,072 groups outgrow the carry's 16,384 slots: it demotes
+        if transfers.get("carry_demotions", 0) < 1:
+            raise AssertionError(f"grace: the grouped carry did not demote: "
+                                 f"{transfers}")
         results["grace"] = {"launches": launches, "wall_s": wall}
         path_line("grace", rows, wall, launches, transfers,
+                  carry_demotions=transfers["carry_demotions"],
+                  fusion=fusion_counts(transfers, rows),
                   groups=table.num_rows, sum_max_rel_err=err,
                   external_agg_buckets=gc.get("external_agg_buckets", 0),
                   external_agg_rebuckets=gc.get("external_agg_rebuckets", 0),
@@ -2292,7 +2358,7 @@ def join_ctx(max_rows: int):
 
 
 def join_task_line(torch, task, blob, rows, kernels, core, check,
-                   max_rows, profile=True, **extra):
+                   max_rows, profile=True, build_replays=0, **extra):
     """Run one join task through execute_task, check it, gate its core
     and kernels, print its path line and (`profile`) profile it once
     more."""
@@ -2312,9 +2378,16 @@ def join_task_line(torch, task, blob, rows, kernels, core, check,
         if launches[name] <= 0:
             raise AssertionError(f"{task} did not launch {name}")
     batches = -(-rows // 16384)
+    fusion = fusion_counts(transfers, rows)
+    if core != "sorted":
+        # the fused join+aggregate: one replay a probe batch, at most
+        # the carry's guard a batch beyond the build's readbacks
+        check_keyed_fused(task, fusion, batches, probe_syncs(transfers),
+                          other_replays=build_replays)
     path_line(task, rows, wall, launches, transfers, sum_max_rel_err=err,
-              join_core=core, probe_batches=batches,
+              join_core=core, probe_batches=batches, fusion=fusion,
               syncs_per_batch=transfers.get("d2h_syncs", 0) / batches,
+              probe_syncs_per_batch=probe_syncs(transfers) / batches,
               join_syncs={k: v for k, v in transfers.items()
                           if k.startswith("d2h_syncs.join")}, **extra)
     if profile:
@@ -2509,6 +2582,9 @@ def join_phase(torch, rows: int, sorted_rows_: int, seed: int, kernels):
                 lambda t, task=task, n=n, times=times: check_join_agg(
                     t, item[:n], price[:n], brands, task, times),
                 max_rows=times * rows, build_rows=times * ITEMS,
+                # a scaled key is a Project on the build side: a graph
+                # replay a build batch
+                build_replays=0 if scale == 1 else -(-times * ITEMS // 16384),
                 key_scale=scale, parquet_write_s=write_s,
                 # join_kr's profiled rerun is cut for the script's time
                 # (PERF.md section 4)
@@ -5331,7 +5407,7 @@ def embed_check(work: str, fact: str, qty, price, device="cuda"):
                   "torch's import and the card's context"})
 
 
-def time_tree(torch, tree: str, rows: int):
+def time_tree(torch, tree: str, rows: int, grouped_rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -5378,39 +5454,74 @@ def time_tree(torch, tree: str, rows: int):
         keep = torch.from_numpy(rng.random(n) < 0.5).cuda()
         out[f"compact_perm_{n}"] = timed(lambda: compact.compact_perm(keep))
     emit(out)
-    compare_paths(torch, tree, rows)
+    compare_paths(torch, tree, rows, grouped_rows)
 
 
-def compare_paths(torch, tree: str, rows: int, runs: int = 3):
-    """The q6 and select tasks (this script's plans) through the tree's
-    execute_task over one parquet file of `rows` rows: each task's wall
-    `runs` times, its transfer and graph counts, then a profiled run
-    (its own line) for the device calls and busy time."""
-    from blaze_tpu_torch.ops import FileRange, ParquetScanExec
+def compare_paths(torch, tree: str, rows: int, grouped_rows: int,
+                  runs: int = 3):
+    """The q6, select, join_agg and join_kr tasks over one parquet file
+    of `rows` rows, and grouped and grouped_partial (PARTIAL task and
+    FINAL) over its first `grouped_rows` rows (this script's plans),
+    through the tree's execute_task: each task's wall `runs` times, its
+    transfer and graph counts, then a profiled run (its own line) for
+    the device calls and busy time."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.ops import AggMode, FileRange, ParquetScanExec
     from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.plan.serde import task_to_proto
-    from blaze_tpu_torch.runtime.executor import execute_task
+    from blaze_tpu_torch.runtime.executor import execute_task, run_plan
 
-    path = os.path.join(REPO, "build", "chip_smoke_compare",
-                        f"store_sales_{rows}.parquet")
-    if not os.path.exists(path):
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        write_store_sales(path + ".tmp", rows, 42)
-        os.replace(path + ".tmp", path)
-    for task, agg in (("q6", True), ("select", False)):
-        blob = task_to_proto(
-            q6_plan(ParquetScanExec([[FileRange(path)]]), agg), 0)
+    work = os.path.join(REPO, "build", "chip_smoke_compare")
+    path = os.path.join(work, f"store_sales_{rows}.parquet")
+    small = os.path.join(work, f"store_sales_{grouped_rows}.parquet")
+    dim = os.path.join(work, "item.parquet")
+    if not os.path.exists(dim):
+        os.makedirs(work, exist_ok=True)
+        item, qty, price = write_store_sales(path + ".tmp", rows, 42)
+        write_parquet(small + ".tmp", item[:grouped_rows],
+                      qty[:grouped_rows], price[:grouped_rows])
+        pq.write_table(pa.table({
+            "i_item": np.arange(ITEMS, dtype=np.int32),
+            "i_brand": item_brands(rows, 42)}), dim + ".tmp")
+        for p in (path, small, dim):
+            os.replace(p + ".tmp", p)
 
-        def run():
-            return list(execute_task(blob, ExecContext(device="cuda")))
+    def scan(p):
+        return ParquetScanExec([[FileRange(p)]])
 
+    def task_run(plan):
+        blob = task_to_proto(plan, 0)
+        return lambda: list(execute_task(blob, join_ctx(rows)))
+
+    partial = grouped_plan(scan(small), AggMode.PARTIAL)
+    partial_blob = task_to_proto(partial, 0)
+
+    def two_phase():
+        ctx = ExecContext(device="cuda")
+        states = list(execute_task(partial_blob, ctx))
+        return run_plan(final_plan(states, partial.schema, ctx.device), ctx)
+
+    tasks = (
+        ("q6", rows, task_run(q6_plan(scan(path), True))),
+        ("select", rows, task_run(q6_plan(scan(path), False))),
+        ("grouped", grouped_rows,
+         task_run(grouped_plan(scan(small), AggMode.COMPLETE))),
+        ("grouped_partial", grouped_rows, two_phase),
+        ("join_agg", rows, task_run(join_agg_plan(scan(path), scan(dim)))),
+        ("join_kr", rows, task_run(join_agg_plan(scan(path), scan(dim),
+                                                 16))))
+    for task, n, run in tasks:
         walls = []
         for _ in range(runs):
             _, wall, _, transfers = run_counted(torch, run, {})
             walls.append(wall)
         emit({"phase": "compare_path", "tree": tree, "task": task,
-              "rows": rows, "walls_s": walls,
-              "fusion": fusion_counts(transfers, rows),
+              "rows": n, "walls_s": walls,
+              "fusion": fusion_counts(transfers, n),
+              "syncs_per_batch": transfers.get("d2h_syncs", 0)
+              / -(-n // 16384),
               "transfers": transfers})
         profile_run(torch, run, f"{task}@{tree}", statistics.median(walls))
 
@@ -5443,14 +5554,15 @@ def main() -> int:
               "(blaze_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     if args.tree:
-        time_tree(torch, args.tree, args.rows)
+        time_tree(torch, args.tree, args.rows, args.grouped_rows)
         return 0
     smi = smi_line()
     if args.compare:
         print(smi, flush=True)
         for tree in (args.compare, REPO, REPO, args.compare):
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--tree", tree, "--rows", str(args.rows)],
+                            "--tree", tree, "--rows", str(args.rows),
+                            "--grouped-rows", str(args.grouped_rows)],
                            check=True)
         print(smi_line(), flush=True)
         return 0

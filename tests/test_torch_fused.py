@@ -243,10 +243,18 @@ def test_keyless_task_fuses_into_the_carry(runs):
 
 
 def test_keyed_task_keeps_its_aggregate_over_a_fused_chain(runs):
+    """A keyed COMPLETE task: HostFinalAggExec over a keyed
+    FusedAggregateExec (the grouped carry) over its two-stage chain."""
     op = _plan_of(runs, "keyed")
-    assert isinstance(op, HashAggregateExec) and op.keys
-    assert isinstance(op.children[0], FusedPipelineExec)
-    assert len(op.children[0].stages) == 2
+    assert isinstance(op, HostFinalAggExec) and op.template.keys
+    assert not op.to_device  # the root: the task boundary reads it
+    fused = op.children[0]
+    assert isinstance(fused, FusedAggregateExec) and fused.fetch_host
+    assert fused.agg.keys and fused.agg.mode is AggMode.PARTIAL
+    assert fused.plan == ["add", "max"]
+    assert len(fused.pipeline.stages) == 2
+    assert isinstance(fused.children[0], ParquetScanExec)
+    assert fused.capturable
 
 
 def test_first_last_stay_unfused_aggregates(runs):

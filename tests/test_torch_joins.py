@@ -811,13 +811,19 @@ def test_join_tasks_from_jax_blobs(kind, join_files, join_core):
 
 
 def test_join_plan_fusion_and_key_types(join_files, tmp_path, join_core):
-    """The fusion pass reaches joins: a Filter/Project chain under the
-    build side becomes a FusedPipelineExec even at one stage, under the
-    probe side at two; the keyed aggregate above stays a
-    HashAggregateExec. String keys raise, naming the ROADMAP item."""
+    """The fusion pass reaches joins: the keyed COMPLETE aggregate above
+    becomes HostFinalAggExec over a keyed FusedAggregateExec, and the
+    INNER join under it gets its Filter/Project chains fused
+    (`_fuse_join_under_agg`): the build side's even at one stage, the
+    probe side's one stage recorded as `_fused_probe`. A string key
+    against an integer key raises."""
     import blaze_tpu_torch.exprs.ir as pir
     from blaze_tpu_torch.ops import FilterExec
-    from blaze_tpu_torch.ops.fused import FusedPipelineExec
+    from blaze_tpu_torch.ops.fused import (
+        FusedAggregateExec,
+        FusedPipelineExec,
+        HostFinalAggExec,
+    )
     from blaze_tpu_torch.planner.fuse import fuse_pipelines
 
     fact, dim = join_files["fact"], join_files["dim"]
@@ -826,12 +832,16 @@ def test_join_plan_fusion_and_key_types(join_files, tmp_path, join_core):
     join = plan.children[0].children[0]
     join.children[0] = FilterExec(join.children[0], Col("i_brand") < 30)
     fused = fuse_pipelines(plan)
-    assert isinstance(fused, HashAggregateExec)
-    assert isinstance(fused.children[0], FusedPipelineExec)
-    join = fused.children[0].children[0]
-    assert isinstance(join, HashJoinExec)
+    assert isinstance(fused, HostFinalAggExec)
+    agg = fused.children[0]
+    assert isinstance(agg, FusedAggregateExec) and agg.fetch_host
+    join = agg.pipeline.children[0]
+    assert isinstance(join, HashJoinExec) and agg.children == [join]
     assert isinstance(join.children[0], FusedPipelineExec)
-    assert isinstance(join.children[1], ProjectExec)
+    probe = join.children[1]
+    assert isinstance(probe, FusedPipelineExec)
+    assert [type(s) for s in probe.stages] == [ProjectExec]
+    assert join._fused_probe == (probe.children[0], probe)
     ctx = ExecContext(device="cpu")
     from blaze_tpu_torch.runtime.executor import execute_partition
 
