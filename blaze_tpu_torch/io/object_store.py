@@ -68,10 +68,23 @@ class LocalStore(ObjectStore):
     def open_input(self, path: str):
         """File-like object for pyarrow's parquet reader: mmap'd page
         buffers, so column chunks slice straight out of the page
-        cache."""
-        import pyarrow as pa
+        cache. BLAZE_PARQUET_MMAP=0 opts out; a failed map (a file
+        system without mmap, the chaos seam `zerocopy.map`) falls back
+        to buffered reads."""
+        if os.environ.get("BLAZE_PARQUET_MMAP", "1") != "0":
+            import pyarrow as pa
 
-        return pa.memory_map(path, "r")
+            from blaze_tpu_torch.testing import chaos
+
+            try:
+                if chaos.ACTIVE:
+                    chaos.fire("zerocopy.map", path=path)
+                return pa.memory_map(path, "r")
+            except FileNotFoundError:
+                raise  # no file: not a failed map
+            except Exception:  # noqa: BLE001 - degrade to the read path
+                pass
+        return open(path, "rb")
 
 
 class MemoryStore(ObjectStore):

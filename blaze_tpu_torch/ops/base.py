@@ -56,6 +56,9 @@ class ExecContext:
     # resource registry: IpcReader sources, IpcWriter sinks (the
     # reference's JniBridge.resourcesMap, JniBridge.java:31)
     resources: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # per-query TraceRecorder (obs/trace.py) when tracing is on; the
+    # executor/scheduler seams check `trace.ACTIVE` before touching it
+    tracer: Optional[object] = None
 
     def __post_init__(self):
         self.device = torch.device(
@@ -99,3 +102,34 @@ class PhysicalOp:
         for c in self.children:
             lines.append(c.display(indent + 1))
         return "\n".join(lines)
+
+    # ------------------------------------------------------------------
+    def fingerprint(self) -> str:
+        """Content-addressed plan identity: operator name + parameter
+        digest + children, recursively (the JAX package's). Two
+        independently decoded plans that compute the same thing get the
+        same fingerprint, which keys the serving tier's result cache
+        (service/cache.py). Ops that cannot prove stable identity keep
+        the default `@id` digest, and `fingerprint_is_stable` says so,
+        so their results are never shared across submissions."""
+        me = f"{type(self).__name__}({self._fingerprint_params()})"
+        if not self.children:
+            return me
+        kids = ",".join(c.fingerprint() for c in self.children)
+        return f"{me}[{kids}]"
+
+    # set True by subclasses whose _fingerprint_params covers every
+    # execution-relevant parameter (content identity, not object
+    # identity)
+    _FINGERPRINT_STABLE = False
+
+    def _fingerprint_params(self) -> str:
+        return f"@{id(self):x}"
+
+    def fingerprint_is_stable(self) -> bool:
+        """True iff every op in the tree declares content-complete
+        parameter coverage; only stable fingerprints key results shared
+        across submissions."""
+        return self._FINGERPRINT_STABLE and all(
+            c.fingerprint_is_stable() for c in self.children
+        )

@@ -24,6 +24,11 @@ from blaze_tpu_torch.ops.project import batch_cvs
 
 
 class FilterExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return repr(self.predicate)
+
     def __init__(self, child: PhysicalOp, predicate: ir.Expr):
         self.children = [child]
         self.predicate = bind_opt(predicate, child.schema)

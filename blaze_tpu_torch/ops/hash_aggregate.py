@@ -415,6 +415,13 @@ class _SegOps(_Reductions):
 
 
 class HashAggregateExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        keys = ";".join(f"{n}={e!r}" for e, n in self.keys)
+        aggs = ";".join(f"{n}={a!r}" for a, n in self.aggs)
+        return f"{self.mode.name};keys[{keys}];aggs[{aggs}]"
+
     def __init__(
         self,
         child: PhysicalOp,

@@ -492,6 +492,12 @@ class HashJoinExec(PhysicalOp):
     #: the child the core indexes
     build_child = 0
 
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return (f"{self.join_type.name};l={self.left_keys};"
+                f"r={self.right_keys}")
+
     def __init__(self, left: PhysicalOp, right: PhysicalOp,
                  left_keys: Sequence[str], right_keys: Sequence[str],
                  join_type: JoinType = JoinType.INNER):
@@ -611,6 +617,12 @@ class SortMergeJoinExec(PhysicalOp):
     sides are co-bucketed on their keys (grace join, kernel K4)."""
 
     build_child = 1
+
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return (f"{self.join_type.name};l={self.left_keys};"
+                f"r={self.right_keys}")
 
     def __init__(self, left: PhysicalOp, right: PhysicalOp,
                  left_keys: Sequence[str], right_keys: Sequence[str],

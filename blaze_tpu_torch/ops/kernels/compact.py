@@ -61,11 +61,13 @@ def compact_perm(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if keep.numel() >= 2 ** 31 - _TILE:
         raise ValueError("compact_perm: int32 row indices need fewer "
                          "than 2^31 - 8192 rows")
-    if keep.device.type == "cpu":
-        return compact_perm_plain(keep)
-    if keep.device.type != "cuda":
-        raise ValueError(f"compact_perm: unsupported device {keep.device}")
-    return _launch(keep.contiguous())
+    with dispatch.kernel_seams("compact_perm"):
+        if keep.device.type == "cpu":
+            return compact_perm_plain(keep)
+        if keep.device.type != "cuda":
+            raise ValueError(
+                f"compact_perm: unsupported device {keep.device}")
+        return _launch(keep.contiguous())
 
 
 def _library():

@@ -65,9 +65,10 @@ def partition_ids(cols: Sequence[KeyCol], num_rows: int, n: int
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"partition_ids: n={n} outside [1, 2^31)")
     dev = _check(cols, num_rows, "partition_ids")
-    if dev.type == "cpu":
-        return murmur3_plain(cols, num_rows, n)
-    return _chain(cols, num_rows, n, False)
+    with dispatch.kernel_seams("murmur3"):
+        if dev.type == "cpu":
+            return murmur3_plain(cols, num_rows, n)
+        return _chain(cols, num_rows, n, False)
 
 
 def hashes(cols: Sequence[KeyCol], num_rows: int) -> torch.Tensor:
@@ -75,9 +76,10 @@ def hashes(cols: Sequence[KeyCol], num_rows: int) -> torch.Tensor:
     keys for rows below `num_rows`, HASH_PAD past them. CPU tensors
     take the plain version; CUDA tensors launch the kernel."""
     dev = _check(cols, num_rows, "hashes")
-    if dev.type == "cpu":
-        return hashes_plain(cols, num_rows)
-    return _chain(cols, num_rows, HASH_PAD, True)
+    with dispatch.kernel_seams("murmur3_hashes"):
+        if dev.type == "cpu":
+            return hashes_plain(cols, num_rows)
+        return _chain(cols, num_rows, HASH_PAD, True)
 
 
 def _check(cols: Sequence[KeyCol], num_rows: int, what: str

@@ -124,14 +124,17 @@ def _segment(op: str, gid, values, k: int, contrib, at) -> torch.Tensor:
         raise ValueError(f"segment_{op}: k={k} outside [1, 2^31)")
     dev = values.device
     others = [t.device for t in (gid, contrib, at) if t is not None]
-    if dev.type == "cpu" and all(d.type == "cpu" for d in others):
-        return _PLAIN[op](gid, values, k, contrib, at)
-    if dev.type != "cuda" or any(d != dev for d in others):
-        raise ValueError(f"segment_{op}: tensors on {dev} and "
-                         f"{[str(d) for d in others]}")
-    return _launch(op, gid.contiguous(), values.contiguous(), k,
-                   None if contrib is None else contrib.contiguous(),
-                   None if at is None else at.contiguous())
+    # the grouped aggregate's reductions: the JAX package's
+    # group_dispatch span
+    with dispatch.kernel_seams(f"segment_{op}", "group_dispatch"):
+        if dev.type == "cpu" and all(d.type == "cpu" for d in others):
+            return _PLAIN[op](gid, values, k, contrib, at)
+        if dev.type != "cuda" or any(d != dev for d in others):
+            raise ValueError(f"segment_{op}: tensors on {dev} and "
+                             f"{[str(d) for d in others]}")
+        return _launch(op, gid.contiguous(), values.contiguous(), k,
+                       None if contrib is None else contrib.contiguous(),
+                       None if at is None else at.contiguous())
 
 
 def key_size(op: str, dtype: torch.dtype) -> int:

@@ -98,13 +98,15 @@ def masked_stats(values: torch.Tensor, mask: torch.Tensor,
         raise ValueError(
             f"masked_stats: shapes {tuple(values.shape)} / "
             f"{tuple(mask.shape)} must be equal and 1-D")
-    if values.device.type == "cpu" and mask.device.type == "cpu":
-        return masked_stats_plain(values, mask)
-    if values.device.type != "cuda" or mask.device != values.device:
-        raise ValueError(
-            f"masked_stats: values on {values.device}, mask on "
-            f"{mask.device}")
-    return _launch(values.contiguous(), mask.contiguous(), None, scratch)
+    with dispatch.kernel_seams("masked_stats"):
+        if values.device.type == "cpu" and mask.device.type == "cpu":
+            return masked_stats_plain(values, mask)
+        if values.device.type != "cuda" or mask.device != values.device:
+            raise ValueError(
+                f"masked_stats: values on {values.device}, mask on "
+                f"{mask.device}")
+        return _launch(values.contiguous(), mask.contiguous(), None,
+                       scratch)
 
 
 def new_scratch(device: torch.device) -> torch.Tensor:

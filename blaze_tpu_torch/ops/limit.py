@@ -11,6 +11,11 @@ from blaze_tpu_torch.ops.util import ensure_compacted
 
 
 class LimitExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return str(self.limit)
+
     def __init__(self, child: PhysicalOp, limit: int):
         self.children = [child]
         self.limit = limit

@@ -36,7 +36,9 @@ from typing import Iterator, List, Optional, Sequence
 from blaze_tpu_torch.types import Schema, TypeId, from_arrow_schema
 from blaze_tpu_torch.batch import ColumnBatch, PackedColumnBatch
 from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.obs import trace as obs_trace
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
+from blaze_tpu_torch.testing import chaos
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +49,19 @@ class FileRange:
 
 
 class ParquetScanExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        # content identity = file ranges + projection + pruning
+        # predicate (file content changes under one path are the result
+        # cache's TTL to cover, as in the JAX package)
+        groups = "|".join(
+            ",".join(f"{fr.path}:{fr.start}:{fr.length}" for fr in g)
+            for g in self.file_groups
+        )
+        proj = ",".join(self.projection) if self.projection else "*"
+        return f"{groups};proj={proj};prune={self.pruning_predicate!r}"
+
     def __init__(
         self,
         file_groups: Sequence[Sequence[FileRange]],
@@ -124,32 +139,51 @@ class ParquetScanExec(PhysicalOp):
 
         def decode() -> Iterator[ColumnBatch]:
             for fr in self.file_groups[partition]:
-                pf = pq.ParquetFile(store_for(fr.path).open_input(fr.path))
-                groups = self._select_row_groups(pf, fr, filters)
-                if not groups:
+                # obs seam: one span a file range (open, row-group
+                # selection and the batch iteration); rec= explicitly,
+                # since the prefetch thread drains this generator
+                span_cm = (
+                    obs_trace.span("parquet_decode", rec=ctx.tracer,
+                                   partition=partition, path=fr.path)
+                    if obs_trace.ACTIVE else obs_trace.NULL
+                )
+                with span_cm:
+                    yield from decode_range(fr)
+
+        def decode_range(fr) -> Iterator[ColumnBatch]:
+            if chaos.ACTIVE:
+                # chaos seam: parquet decode / object-store read failure
+                # for this file range (inside the span)
+                chaos.fire("parquet.decode", partition=partition,
+                           path=fr.path)
+            pf = pq.ParquetFile(store_for(fr.path).open_input(fr.path))
+            groups = self._select_row_groups(pf, fr, filters)
+            if groups:
+                yield from batches(pf, groups)
+
+        def batches(pf, groups) -> Iterator[ColumnBatch]:
+            for rb in pf.iter_batches(
+                batch_size=cfg.batch_size, row_groups=groups,
+                columns=read_names, use_threads=True,
+            ):
+                ctx.metrics.add("input_rows", rb.num_rows)
+                ctx.metrics.add("input_batches", 1)
+                if row_filters:
+                    before = rb.num_rows
+                    rb = _apply_host_filters(rb, row_filters)
+                    ctx.metrics.add("pushdown_filtered_rows",
+                                    before - rb.num_rows)
+                if rb.num_rows == 0:
                     continue
-                for rb in pf.iter_batches(
-                    batch_size=cfg.batch_size, row_groups=groups,
-                    columns=read_names, use_threads=True,
-                ):
-                    ctx.metrics.add("input_rows", rb.num_rows)
-                    ctx.metrics.add("input_batches", 1)
-                    if row_filters:
-                        before = rb.num_rows
-                        rb = _apply_host_filters(rb, row_filters)
-                        ctx.metrics.add("pushdown_filtered_rows",
-                                        before - rb.num_rows)
-                    if rb.num_rows == 0:
-                        continue
-                    if present is None:
-                        yield PackedColumnBatch.from_arrow(
-                            rb, device=ctx.device, staging=staging)
-                        continue
-                    sub = pa.record_batch([rb.column(c) for c in keep_names],
-                                          names=keep_names)
-                    yield PackedColumnBatch.from_arrow_pruned(
-                        sub, self._schema, present, device=ctx.device,
-                        staging=staging)
+                if present is None:
+                    yield PackedColumnBatch.from_arrow(
+                        rb, device=ctx.device, staging=staging)
+                    continue
+                sub = pa.record_batch([rb.column(c) for c in keep_names],
+                                      names=keep_names)
+                yield PackedColumnBatch.from_arrow_pruned(
+                    sub, self._schema, present, device=ctx.device,
+                    staging=staging)
 
         # overlap parquet decode + H2D with downstream device compute
         yield from prefetch(decode(), depth=2)

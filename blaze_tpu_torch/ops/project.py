@@ -31,6 +31,11 @@ def batch_cvs(cb: ColumnBatch) -> List[CV]:
 
 
 class ProjectExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return ";".join(f"{n}={e!r}" for e, n in self.exprs)
+
     def __init__(self, child: PhysicalOp,
                  exprs: Sequence[Tuple[ir.Expr, str]]):
         self.children = [child]

@@ -12,6 +12,11 @@ from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 
 
 class RenameColumnsExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return ";".join(self.names)
+
     def __init__(self, child: PhysicalOp, names: List[str]):
         self.children = [child]
         self.names = list(names)

@@ -74,6 +74,11 @@ class SortKey:
 
 
 class SortExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return f"{self.keys!r};fetch={self.fetch}"
+
     def __init__(self, child: PhysicalOp, keys: List[SortKey],
                  fetch: Optional[int] = None):
         self.children = [child]

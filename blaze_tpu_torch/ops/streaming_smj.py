@@ -89,6 +89,12 @@ def _tuple_lt(a: np.ndarray, b: np.ndarray) -> bool:
 class StreamingSortMergeJoinExec(PhysicalOp):
     build_child = 1
 
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return (f"{self.join_type.name};l={self.left_keys};"
+                f"r={self.right_keys}")
+
     def __init__(self, left: PhysicalOp, right: PhysicalOp,
                  left_keys: Sequence[str], right_keys: Sequence[str],
                  join_type: JoinType = JoinType.INNER):

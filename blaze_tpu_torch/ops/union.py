@@ -12,6 +12,11 @@ from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 
 
 class UnionExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return ""
+
     def __init__(self, children: List[PhysicalOp]):
         if not children:
             raise ValueError("UnionExec needs at least one child")
@@ -42,6 +47,11 @@ class UnionExec(PhysicalOp):
 class CoalescePartitionsExec(PhysicalOp):
     """Merge every child partition into one (Spark
     CoalescePartitionsExec)."""
+
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return ""
 
     def __init__(self, child: PhysicalOp):
         self.children = [child]

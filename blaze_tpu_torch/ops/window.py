@@ -108,6 +108,12 @@ def expr_refs(e: ir.Expr, schema: Schema) -> Set[int]:
 
 
 class WindowExec(PhysicalOp):
+    _FINGERPRINT_STABLE = True
+
+    def _fingerprint_params(self) -> str:
+        return (f"p={self.partition_by!r};o={self.order_by!r};"
+                f"f={self.functions!r}")
+
     def __init__(self, child: PhysicalOp,
                  partition_by: Sequence[ir.Expr],
                  order_by: Sequence[SortKey],

@@ -15,8 +15,8 @@ process boundaries except protobuf + IPC files, so the same layout scales
 to real multi-host runs with a shared filesystem or object store.
 
 The JAX package's module (blaze_tpu/runtime/cluster.py) without its
-tracing and chaos hooks, which wait for the serving tier's
-observability and fault injection (ROADMAP item 8). A worker's device is
+tracing and chaos hooks, which come with the second half of the
+serving tier (ROADMAP 'Modules to port' item 8). A worker's device is
 explicit (`MiniCluster(device=...)`, "cuda" by default); a worker asked
 for cuda that finds none fails every task it claims, and never carries
 on on the CPU. A worker's completion record carries its task's kernel

@@ -56,6 +56,15 @@ group-capacity tier, and for the grouped carry whether the graph reads
 a previous carry, the carry's slot count and the batch's; a fused
 join's names its table core (mode, probe rounds, and the core itself,
 whose build the graph reads).
+
+The chaos and trace seams of the JAX package's `_wrap_dispatch` sit at
+each graph replay and each call of a kernel wrapper outside a capture
+(`kernel_seams`; on the CPU the wrapper's plain version): a
+`kernel.dispatch` fault site and one span, `kernel_dispatch` or, for
+the grouped aggregate's, `group_dispatch`. CUDA launches are
+asynchronous, as XLA's dispatches are, so a span measures the host's
+launch and its count is the signal; no seam synchronises or reads a
+tensor back. With tracing and chaos off each costs one attribute check.
 """
 
 from __future__ import annotations
@@ -63,6 +72,9 @@ from __future__ import annotations
 import collections
 import threading
 from typing import Callable, Dict, List, Optional
+
+from blaze_tpu_torch.obs import trace as obs_trace
+from blaze_tpu_torch.testing import chaos
 
 _lock = threading.Lock()
 _counts: Dict[str, int] = {}
@@ -149,9 +161,32 @@ def launched(count: Callable[[], None]) -> None:
         pending.append(count)
 
 
+def kernel_seams(kind: str, span: str = "kernel_dispatch"):
+    """The seams of one kernel call or graph replay: the chaos site
+    `kernel.dispatch` fires now, and the returned context manager is
+    the call's span (a no-op while tracing is off, and while this
+    thread captures a graph, which launches nothing then)."""
+    if getattr(_tls, "capture", None) is not None:
+        return obs_trace.NULL
+    if chaos.ACTIVE:
+        chaos.fire("kernel.dispatch", kind=kind)
+    if obs_trace.ACTIVE:
+        return obs_trace.span(span, kind=kind)
+    return obs_trace.NULL
+
+
+#: the span a graph's replay takes, by the first element of its cache
+#: key (the JAX package's relational-core spans, phases `join` and
+#: `group` in obs/phases.py)
+_GRAPH_SPANS = {"fagg": "group_dispatch", "fagg_gcarry": "group_dispatch"}
+
+
 class Graph:
     """A captured CUDA graph with its static tensors. `replay()` runs it
-    on the current stream and counts the kernel launches it holds."""
+    on the current stream and counts the kernel launches it holds;
+    `kind` (the first element of its cache key) names its seams."""
+
+    kind = "graph"
 
     def __init__(self, graph, launches: List[Callable[[], None]], **static):
         self.graph = graph
@@ -159,7 +194,12 @@ class Graph:
         self.__dict__.update(static)
 
     def replay(self) -> None:
-        self.graph.replay()
+        if chaos.ACTIVE or obs_trace.ACTIVE:
+            with kernel_seams(self.kind,
+                              _GRAPH_SPANS.get(self.kind, "kernel_dispatch")):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         record("graph_replays")
         for count in self.launches:
             count()
@@ -210,24 +250,40 @@ class GraphCache:
     """Captured graphs by key, each lent to one caller at a time: a
     graph's static tensors belong to the batch it is replaying, so two
     tasks with one key each get a graph of their own. At most
-    `max_keys` keys are kept, the least recently used dropped first."""
+    `max_keys` keys are kept, the least recently used dropped first.
+    `lent()` counts the graphs out: every borrower gives its graph back
+    in a `finally`, so a cancelled or timed-out query leaves none out,
+    and a graph comes back only after its last replay was queued on the
+    stream, so the next borrower's copies into it run after that
+    replay."""
 
     def __init__(self, max_keys: int = 32):
         self.max_keys = max_keys
         self._free: "collections.OrderedDict[tuple, List[Graph]]" = \
             collections.OrderedDict()
         self._lock = threading.Lock()
+        self._lent = 0
 
     def acquire(self, key: tuple, build: Callable[[], Graph]) -> Graph:
         with self._lock:
             free = self._free.get(key)
             if free:
                 self._free.move_to_end(key)
+                self._lent += 1
                 return free.pop()
-        return build()
+        g = build()
+        g.kind = str(key[0])
+        with self._lock:
+            self._lent += 1
+        return g
+
+    def lent(self) -> int:
+        with self._lock:
+            return self._lent
 
     def release(self, key: tuple, g: Graph) -> None:
         with self._lock:
+            self._lent -= 1
             self._free.setdefault(key, []).append(g)
             self._free.move_to_end(key)
             while len(self._free) > self.max_keys:

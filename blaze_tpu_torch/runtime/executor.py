@@ -24,9 +24,11 @@ from typing import Iterator, List, Optional
 import torch
 
 from blaze_tpu_torch.errors import ErrorClass, classify
+from blaze_tpu_torch.obs import trace as obs_trace
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.ops.util import ensure_compacted
 from blaze_tpu_torch.runtime import dispatch
+from blaze_tpu_torch.testing import chaos
 
 log = logging.getLogger("blaze_tpu_torch.executor")
 
@@ -116,15 +118,29 @@ def _drain(op: PhysicalOp, partition: int, ctx: ExecContext
         )
     counter = dispatch.counting()
     counter.__enter__()
+    # obs seam: one span per partition drain (the parquet decode, H2D
+    # and kernel spans attach under it; the off path is one attribute
+    # check)
+    span_cm = (
+        obs_trace.span("execute_partition", rec=ctx.tracer,
+                       partition=partition, task=ctx.task_id)
+        if obs_trace.ACTIVE else obs_trace.NULL
+    )
     try:
-        for cb in op.execute(partition, ctx):
-            cb = ensure_compacted(cb)
-            if cb.num_rows == 0:
-                continue
-            rb = cb.to_arrow()
-            ctx.metrics.add("output_rows", rb.num_rows)
-            ctx.metrics.add("output_batches", 1)
-            yield rb
+        with span_cm:
+            if chaos.ACTIVE:
+                # the per-partition fault seam, inside the try so an
+                # injected fault is wrapped like an operator failure
+                chaos.fire("task.execute", partition=partition,
+                           task_id=ctx.task_id)
+            for cb in op.execute(partition, ctx):
+                cb = ensure_compacted(cb)
+                if cb.num_rows == 0:
+                    continue
+                rb = cb.to_arrow()
+                ctx.metrics.add("output_rows", rb.num_rows)
+                ctx.metrics.add("output_batches", 1)
+                yield rb
     except (KeyboardInterrupt, GeneratorExit):
         # task cancellation must not poison the engine (the reference
         # swallows JVM-interrupts the same way, exec.rs:330-343)

@@ -21,18 +21,23 @@ Framing:
             (shuffle FileSegment) or {"b64": "..."} (raw IPC part
             bytes) - the socket-tier analog of the reference's JVM
             resource registry (JniBridge.java:31);
-            bit 61 set = the multi-query SERVICE protocol, which waits
-            for the serving tier (ROADMAP 'Modules to port' item 8): such
-            a connection gets the error frame.
+            bit 61 set = the connection speaks the multi-query SERVICE
+            protocol (service/wire.py verbs: submit / poll / fetch /
+            cancel / ... over one connection) - requires a
+            QueryService attached (`python -m blaze_tpu_torch serve`);
+            without one the connection gets the error frame.
   response: per batch, one segmented-IPC part (u64-LE part_len | zstd
             Arrow IPC stream)
             then u64-LE 0 (end of stream)
             on error: u64-LE 0xFFFFFFFFFFFFFFFF | u32-LE msg_len | utf8
 
-Each connection runs its task on a thread of its own (a
-ThreadingTCPServer), on the server's device ("cuda" unless the server
-is made for the CPU); connections at once share the card as the
-scheduler's map threads do. A client that hangs up mid-stream cancels
+Each connection runs on a thread of its own (a ThreadingTCPServer: the
+JAX package's "threaded" wire, the one plane the port has until the
+event-loop wire, service/wire_async.py, lands), its task on the
+server's device ("cuda" unless the server is made for the CPU);
+connections at once share the card as the scheduler's map threads do.
+A service connection runs its queries on the attached service's
+device. A client that hangs up mid-stream cancels
 its task: the task's iterator is closed and nothing is reported as a
 failure.
 """
@@ -42,6 +47,7 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import os
 import socketserver
 import struct
 import threading
@@ -56,12 +62,15 @@ _U32 = struct.Struct("<I")
 _ERR = 0xFFFFFFFFFFFFFFFF
 _FLAG_REF = 1 << 63
 _FLAG_MANIFEST = 1 << 62
+# connection-mode switch: a first header with this bit set speaks the
+# multi-query service protocol (service/wire.py) instead of the legacy
+# one-shot task exchange
 _FLAG_SERVICE = 1 << 61
 MAX_TASK_BYTES = 64 << 20
-SERVICE_REFUSAL = (
-    "the multi-query service protocol (header bit 61) waits for the "
-    "serving tier, ROADMAP 'Modules to port' item 8"
-)
+NO_SERVICE = "no query service attached"
+# accept-loop shutdown poll: stop() returns within this (socketserver's
+# default, 0.5 s, is what every stop would otherwise wait)
+_POLL_S = 0.05
 
 
 def _manifest_resources(manifest: dict):
@@ -98,7 +107,15 @@ class _Handler(socketserver.BaseRequestHandler):
         except Exception:
             return
         if header & _FLAG_SERVICE:
-            _send_error(sock, SERVICE_REFUSAL)
+            service = self.server.service
+            if service is None:
+                _send_error(sock, NO_SERVICE)
+                return
+            from blaze_tpu_torch.service.wire import (
+                handle_service_connection,
+            )
+
+            handle_service_connection(sock, service)
             return
         handle_legacy_connection(sock, header, self.server.device)
 
@@ -173,15 +190,32 @@ class _Server(socketserver.ThreadingTCPServer):
 
 class TaskGatewayServer:
     """Gateway listener: one thread a connection (the JAX package's
-    "threaded" wire). `device` is the device every task runs on (None:
-    the config's, "cuda")."""
+    "threaded" wire). `device` is the device every legacy task runs on
+    (None: the config's, "cuda"); `service`, a QueryService, enables
+    service-protocol connections on the same listener. `wire` (or the
+    BLAZE_WIRE environment variable) picks the data plane: "threaded"
+    is the port's default and its only plane, and "async" raises until
+    the event-loop wire is ported."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None, service=None,
+                 wire: Optional[str] = None):
+        if wire is None:
+            wire = os.environ.get("BLAZE_WIRE", "threaded")
+        if wire == "async":
+            from blaze_tpu_torch.service.wire import ASYNC_WIRE_REFUSAL
+
+            raise NotImplementedError(ASYNC_WIRE_REFUSAL)
+        if wire != "threaded":
+            raise ValueError(f"unknown wire mode {wire!r}")
+        self.wire = wire
+        self.service = service
         self._srv = _Server((host, port), _Handler, bind_and_activate=True)
         self._srv.device = device
+        self._srv.service = service
         self._thread = threading.Thread(
-            target=self._srv.serve_forever, daemon=True)
+            target=self._srv.serve_forever, daemon=True,
+            kwargs={"poll_interval": _POLL_S})
 
     @property
     def address(self):
@@ -191,8 +225,22 @@ class TaskGatewayServer:
         self._thread.start()
         return self
 
-    def stop(self) -> None:
+    def serve_blocking(self) -> None:
+        """Run the accept loop on the calling thread (the CLI's shape;
+        instead of start()) until shutdown()."""
+        self._srv.serve_forever(poll_interval=_POLL_S)
+
+    def shutdown(self) -> None:
+        """Stop the accept loop without closing the listener; safe from
+        any thread (the drain path calls it once the service is
+        empty)."""
         self._srv.shutdown()
+
+    def stop(self) -> None:
+        # shutdown() waits for a running accept loop; a listener never
+        # started has none to wait for
+        if self._thread.is_alive():
+            self._srv.shutdown()
         self._srv.server_close()
 
     def __enter__(self):
@@ -200,3 +248,12 @@ class TaskGatewayServer:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def serve_forever(host: str = "127.0.0.1", port: int = 8484,
+                  service=None, device: Optional[str] = None
+                  ) -> None:  # pragma: no cover - CLI
+    srv = TaskGatewayServer(host, port, device=device, service=service)
+    print(f"blaze_tpu_torch gateway listening on {srv.address}",
+          flush=True)
+    srv.serve_blocking()

@@ -1,7 +1,7 @@
 """Memory budget and spill ladder.
 
-A copy of the JAX package's runtime/memory.py, without its chaos seam
-(testing/chaos.py waits for ROADMAP 'Modules to port' item 8).
+A copy of the JAX package's runtime/memory.py, with its chaos seam
+(`device.memory`, testing/chaos.py).
 Reference counterpart: DataFusion's MemoryConsumer try_grow/spill
 protocol under MemoryManagerConfig {max_memory, memory_fraction}
 (exec.rs:79-94; spill path shuffle_writer_exec.rs:570-623), with one
@@ -15,6 +15,7 @@ import threading
 from typing import Callable, Dict, Hashable, List, Optional
 
 from blaze_tpu_torch.config import EngineConfig, get_config
+from blaze_tpu_torch.testing import chaos
 
 
 class MemoryPool:
@@ -94,6 +95,12 @@ class DeviceMemoryTracker:
         return int(get_config().device_memory_budget)
 
     def track(self, op_id: Hashable, nbytes: int) -> None:
+        if chaos.ACTIVE:
+            # chaos seam: device-memory pressure at the accounting
+            # boundary (a RESOURCE_EXHAUSTED fault here drives the
+            # service's classified failure, or its host degrade where
+            # that is allowed)
+            chaos.fire("device.memory", op_id=op_id, nbytes=nbytes)
         with self._lock:
             self._used[op_id] = self._used.get(op_id, 0) + nbytes
 

@@ -30,7 +30,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from blaze_tpu_torch.obs import trace as obs_trace
 from blaze_tpu_torch.runtime import dispatch
+from blaze_tpu_torch.testing import chaos
 
 ALIGN = 16
 HEADER = 16  # int64 live row count, then padding to ALIGN
@@ -104,7 +106,27 @@ def put_packed(segments: Sequence[Tuple[np.ndarray, object]], num_rows: int,
                staging: Optional[Staging] = None
                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Pad and pack host arrays into one buffer and copy it to `device`
-    in one transfer.
+    in one transfer (`_put_packed`). A copy to the card passes the
+    `h2d.transfer` chaos seam and takes one `h2d` span (the pack and the
+    copy's launch; the copy itself is asynchronous); a CPU batch, which
+    aliases its host buffer, has no transfer and no seam (the JAX
+    package's CPU backend has none either)."""
+    if device.type != "cuda":
+        return _put_packed(segments, num_rows, cap, device, staging)
+    if chaos.ACTIVE:
+        # chaos seam: the host->device staging transfer fails
+        chaos.fire("h2d.transfer", n_arrays=len(segments))
+    if obs_trace.ACTIVE:
+        with obs_trace.span("h2d", n_arrays=len(segments)):
+            return _put_packed(segments, num_rows, cap, device, staging)
+    return _put_packed(segments, num_rows, cap, device, staging)
+
+
+def _put_packed(segments: Sequence[Tuple[np.ndarray, object]],
+                num_rows: int, cap: int, device: torch.device,
+                staging: Optional[Staging] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The pack and the transfer.
 
     `segments` are `(values, fill)`: the live rows (at most `cap`,
     each row a scalar or, for decimal(>18) limbs, a pair) and the

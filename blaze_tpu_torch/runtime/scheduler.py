@@ -50,6 +50,7 @@ from typing import List, Optional
 import pyarrow as pa
 
 from blaze_tpu_torch.errors import classify, retry_action
+from blaze_tpu_torch.obs import trace as obs_trace
 from blaze_tpu_torch.ops.base import ExecContext, PhysicalOp
 from blaze_tpu_torch.runtime.executor import (
     TaskExecutionError,
@@ -123,19 +124,28 @@ def run_plan_parallel(
         for attempt in range(max_attempts):
             if cancelled():
                 raise PlanCancelled(f"partition {p} cancelled")
+            # obs seam: one span per attempt (a failed one is tagged
+            # with its error class); the executor's partition span
+            # nests under it
+            span_cm = (
+                obs_trace.span("attempt", rec=ctx.tracer,
+                               partition=p, attempt=attempt)
+                if obs_trace.ACTIVE else obs_trace.NULL
+            )
             it = execute_partition(op, p, ctx)
             out: List[pa.RecordBatch] = []
             try:
-                for rb in it:
-                    out.append(rb)
-                    if cancelled():
-                        # the executor's cancellation pass-through:
-                        # close -> GeneratorExit unwinds the operator
-                        # tree without poisoning the engine
-                        it.close()
-                        raise PlanCancelled(
-                            f"partition {p} cancelled mid-stream"
-                        )
+                with span_cm:
+                    for rb in it:
+                        out.append(rb)
+                        if cancelled():
+                            # the executor's cancellation pass-through:
+                            # close -> GeneratorExit unwinds the
+                            # operator tree without poisoning the engine
+                            it.close()
+                            raise PlanCancelled(
+                                f"partition {p} cancelled mid-stream"
+                            )
                 return out
             except PlanCancelled:
                 raise

@@ -8,8 +8,8 @@ Here: every worker runs a BlockServer over TCP serving byte ranges of
 files under its local data roots; reduce tasks on other hosts stream
 remote segments through `open_remote_stream`, which presents a file-like
 object the existing segmented-IPC channel decoder consumes unchanged.
-The JAX package's module (blaze_tpu/runtime/transport.py), without its
-scatter-gather send, which belongs to the serving tier (ROADMAP item 8).
+The JAX package's module (blaze_tpu/runtime/transport.py), with its
+scatter-gather send (`sendmsg_all`, the serving tier's arena FETCH).
 
 Framing (one request per connection, like a shuffle block fetch):
   request:  u32 path_len | path utf8 | i64 offset | i64 length
@@ -104,8 +104,11 @@ class BlockServer:
         )
         self._srv.daemon_threads = True
         self._srv.block_server = self  # type: ignore[attr-defined]
+        # stop() returns within the accept loop's poll (socketserver's
+        # default, 0.5 s, is what every stop would otherwise wait)
         self._thread = threading.Thread(
-            target=self._srv.serve_forever, daemon=True
+            target=self._srv.serve_forever, daemon=True,
+            kwargs={"poll_interval": 0.05},
         )
 
     @property
@@ -248,3 +251,40 @@ def _recv_exact(sock, n: int) -> bytes:
             raise ConnectionError("socket closed mid-frame")
         got += k
     return bytes(buf)
+
+
+# sendmsg iovec bound: Linux caps a single sendmsg at IOV_MAX (1024)
+# buffers; stay comfortably under it
+_IOV_CHUNK = 512
+
+
+def sendmsg_all(sock, buffers) -> int:
+    """Scatter-gather send: write a buffer list (bytes / memoryview,
+    e.g. the arena's mmap-backed frame views) without concatenating a
+    reply - the writev-style half of the zero-copy serve path
+    (service/wire.py's FETCH of arena parts). Handles partial sends and
+    IOV_MAX chunking; falls back to sendall when the socket has no
+    sendmsg. Returns bytes sent."""
+    views = [memoryview(b) for b in buffers if len(b)]
+    sendmsg = getattr(sock, "sendmsg", None)
+    total = 0
+    if sendmsg is None:
+        for v in views:
+            sock.sendall(v)
+            total += len(v)
+        return total
+    while views:
+        try:
+            sent = sendmsg(views[:_IOV_CHUNK])
+        except InterruptedError:
+            continue
+        total += sent
+        while sent and views:
+            head = views[0]
+            if sent >= len(head):
+                sent -= len(head)
+                views.pop(0)
+            else:
+                views[0] = head[sent:]
+                sent = 0
+    return total

@@ -185,8 +185,8 @@ Phases, one JSON line each:
      distinct, 4 row groups with their own dictionaries) on item * 8 +
      qty % 8, GROUP BY c_customer_id, ORDER BY it, LIMIT 100, against
      numpy; then the aggregate as Spark plans it over a hash exchange on
-     c_customer_id: 2,097,152 rows (4,194,304 before the cluster
-     slice) in 4 map tasks (PARTIAL, the
+     c_customer_id: 2,097,152 rows (CUSTOMER_EXCHANGE_ROWS; 4,194,304
+     before the serving slice) in 4 map tasks (PARTIAL, the
      ShuffleWriter hashing the strings on the host) and 200 reduce
      tasks (FINAL), every group against numpy, each group's reducer and
      the partition ids of 65,536 customer ids bit for bit against a
@@ -249,7 +249,8 @@ Phases, one JSON line each:
      PLAN_FALLBACK_TAGS (the JAX package's, pinned by
      tests/test_torch_planner.py), equal to the oracle;
    - range_sort: ORDER BY price DESC, item over a 16-partition range
-     ShuffleExchangeExec of the 4 partitions, a SortExec a partition:
+     ShuffleExchangeExec of the 4 partitions of the fact file's first
+     2,097,152 rows (RANGE_SORT_ROWS), a SortExec a partition:
      row for row numpy's stable lexsort, each partition within its
      sampled bounds;
    - tpcds_exchange: tests/test_tpcds_exchange.py on the card, its 99
@@ -300,7 +301,26 @@ Phases, one JSON line each:
    - embed: q6 through the port's C++ embed host (csrc/blaze_embed*.cpp,
      g++ and python3-config --embed), CPython hosted in the host
      process, on the card: its Arrow C-Data checksums against numpy.
-   The shape of every kernel launch on these paths is noted.
+   Then the serving tier (`service_phase`, last): `python -m
+   blaze_tpu_torch serve --max-concurrency 2` as a subprocess on the
+   card, driven by the port's ServiceClient: join_agg and grouped take
+   both slots, q6 and a second grouped queue at one priority (the later
+   with the earlier deadline) beside a queued query that is cancelled
+   and one whose 50 ms deadline passes; each result exact against its
+   oracle, the admission order priority then EDF, the queued cancel
+   CANCELLED, the deadline TIMED_OUT; q6 again served from the result
+   cache with no replay, launch, copy or readback, its plan rebuilt and
+   serialized anew hitting the plan cache (no `plan_decode` span); the
+   arena FETCH byte-identical to the socket FETCH; a running grouped
+   cancelled, then no CUDA graph lent; the `trace` CLI's document valid
+   with the query, queue_wait, attempt, execute_partition, h2d and
+   kernel_dispatch events; the METRICS exposition with the dispatch
+   kinds and the service's counters, no degrade, no retry; the kernels'
+   launches read from the server's exposition; then q6 and grouped
+   through an in-process service on the card with tracing off and on,
+   0 and 1.0 readbacks a batch both ways (`service` line).
+   The shape of every kernel launch on these paths is noted (the
+   server's, in its own process, are not).
 5. kernels_at_path_shapes: each kernel against its plain version, as in
    phase 3, at every launch shape of phase 4 that phase 3 did not check;
    then K1, K2 and K3 timed at the most launched of those shapes (K2 at
@@ -3085,7 +3105,7 @@ BRAND_IDS = 1000  # about 1000 distinct i_brand
 CLASSES = 100  # about 100 distinct i_class
 CUSTOMERS = 1 << 20
 ROW_GROUPS = 4
-CUSTOMER_EXCHANGE_ROWS = 1 << 22
+CUSTOMER_EXCHANGE_ROWS = 1 << 21
 PID_SAMPLE = 1 << 16
 TPCDS99_ROWS = 200_000
 #: queries that rank float sums: K3 adds floats with atomics in the
@@ -4100,6 +4120,7 @@ PLAN_SPLITS = 4  # FileRange partitions of the planner tasks' fact scan
 PLAN_PARTITIONS = 8  # plan_join_agg's reduce partitions
 FALLBACK_ROWS = 1 << 20
 RANGE_PARTITIONS = 16
+RANGE_SORT_ROWS = 1 << 21  # range_sort reads the fact file's first rows
 # plan_fallback's spec tags, as the JAX package's convert_plan sets them
 # (tests/test_torch_planner.py pins them against it): the aggregate, the
 # two projections and the fact scan native; the join (enable_bhj=False)
@@ -4490,6 +4511,10 @@ def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
         small_path = os.path.join(work, "store_sales_small.parquet")
         write_parquet(small_path, item[:FALLBACK_ROWS], qty[:FALLBACK_ROWS],
                       price[:FALLBACK_ROWS])
+        n_range = min(rows, RANGE_SORT_ROWS)
+        range_path = os.path.join(work, "store_sales_range.parquet")
+        write_parquet(range_path, item[:n_range], qty[:n_range],
+                      price[:n_range])
         write_s = time.perf_counter() - t0
 
         # plan_join_agg: every node native, 4 map tasks in threads
@@ -4585,7 +4610,7 @@ def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
         box = {}
 
         def build_range():
-            scan = ParquetScanExec(byte_splits(FileRange, fact_path,
+            scan = ParquetScanExec(byte_splits(FileRange, range_path,
                                                PLAN_SPLITS))
             ex = box["ex"] = ShuffleExchangeExec(
                 scan, [Col("price"), Col("item")], RANGE_PARTITIONS,
@@ -4599,9 +4624,10 @@ def planner_phase(torch, rows: int, seed: int, kernels, device="cuda"):
         counters = ctx.metrics.counters
         bounds = box["ex"].range_bounds(ctx)
         sizes = exchange_partition_rows(box["ex"], ctx)
-        check_range_sort(table, item, qty, price, bounds, sizes)
+        check_range_sort(table, item[:n_range], qty[:n_range],
+                         price[:n_range], bounds, sizes)
         results["range_sort"] = {"launches": launches, "wall_s": wall}
-        planner_line("range_sort", rows, wall, launches, transfers, op,
+        planner_line("range_sort", n_range, wall, launches, transfers, op,
                      counters, bounds=[[float(b[0]), int(b[1])]
                                        for b in bounds],
                      partition_rows=sizes,
@@ -5407,6 +5433,357 @@ def embed_check(work: str, fact: str, qty, price, device="cuda"):
                   "torch's import and the card's context"})
 
 
+# ---------------------------------------------------------------------------
+# the serving tier: `python -m blaze_tpu_torch serve` on the card
+# ---------------------------------------------------------------------------
+
+SERVICE_KERNELS = {"masked_stats": "launch.masked_stats",
+                   "compact_perm": "launch.compact_perm",
+                   "segment_reduce": "launch.segreduce",
+                   "murmur3": "launch.murmur3",
+                   "murmur3_hashes": "launch.murmur3_hashes"}
+
+
+def start_server(args, log_path: str, timeout: float = 120.0):
+    """`python -m blaze_tpu_torch serve --port 0 ...` as a subprocess on
+    the card, its output in `log_path` (a file, so a chatty server never
+    blocks on a full pipe): (process, (host, port), seconds to its
+    listening line)."""
+    import re
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "blaze_tpu_torch", "serve", "--port",
+             "0", *args], stdout=log, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=REPO)
+    m = None
+    while time.perf_counter() - t0 < timeout and proc.poll() is None:
+        with open(log_path) as f:
+            m = re.search(r"listening on \('([\d.]+)', (\d+)\)", f.read())
+        if m is not None:
+            break
+        time.sleep(0.1)
+    if m is None:
+        stop_server(proc)
+        raise AssertionError(f"serve did not start in {timeout} s: "
+                             f"{server_tail(log_path)}")
+    return proc, (m.group(1), int(m.group(2))), time.perf_counter() - t0
+
+
+def server_tail(log_path: str) -> str:
+    with open(log_path) as f:
+        return f.read()[-2000:]
+
+
+def stop_server(proc) -> None:
+    """SIGTERM (the drain path); killed if it outlasts 60 s."""
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def metric_values(text: str, family: str, label: str):
+    """{label value: sample} of one family of a Prometheus exposition."""
+    import re
+
+    out = {}
+    for ln in text.splitlines():
+        m = re.match(rf'{family}{{(?:[^}}]*,)?{label}="([^"]*)"[^}}]*}} '
+                     r'(\S+)$', ln)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def ipc_bytes(batches) -> bytes:
+    import pyarrow as pa
+
+    sink = pa.BufferOutputStream()
+    if batches:
+        with pa.ipc.new_stream(sink, batches[0].schema) as w:
+            for rb in batches:
+                w.write_batch(rb)
+    return sink.getvalue().to_pybytes()
+
+
+def syncs_traced_and_not(torch, blobs, rows: dict, device="cuda"):
+    """q6's and grouped's readbacks a batch through an in-process
+    QueryService on the card with tracing off, then on: spans must add
+    none (on the card: 0 and 1.0, PERF.md section 5)."""
+    from blaze_tpu_torch.service import QueryService
+
+    out = {}
+    # a first untraced run of each leaves its graphs captured
+    for trace in (None, False, True):
+        with QueryService(max_concurrency=1, enable_cache=False,
+                          plan_cache_entries=0, device=device,
+                          enable_trace=bool(trace)) as svc:
+            for task in ("q6", "grouped"):
+                q = svc.submit_task(blobs[task])
+                svc.result(q.query_id, timeout=300)
+                batches = -(-rows[task] // 16384)
+                out[(task, trace)] = q.status()["d2h_syncs"] / batches
+    for task, want in (("q6", 0.0), ("grouped", 1.0)):
+        if device != "cuda":
+            want = out[(task, False)]  # a CPU rehearsal: no graphs
+        if not out[(task, False)] == out[(task, True)] == want:
+            raise AssertionError(
+                f"service: {task} syncs a batch {out[(task, False)]} "
+                f"untraced, {out[(task, True)]} traced, not {want}")
+    label = {None: "first", False: "untraced", True: "traced"}
+    return {f"{t}_{label[on]}": v for (t, on), v in out.items()}
+
+
+def service_phase(torch, rows: int, grouped_rows: int, seed: int,
+                  device="cuda"):
+    """The serving tier on the card: the serve CLI as a subprocess (2
+    queries at once, the arena and the plan cache at their defaults)
+    driven by the port's ServiceClient over q6 and join_agg on `rows`
+    rows and grouped on `grouped_rows`: every result exact; admission by
+    priority, then deadline; the repeat of q6 served from the result
+    cache with no device work, its re-serialized blob from the plan
+    cache; the arena FETCH byte-identical to the socket FETCH; a queued
+    and a running query cancelled, a queued one timed out, no CUDA
+    graph left lent; a valid trace through the `trace` CLI, the
+    `metrics` exposition, no degrade and no retry; readbacks a batch
+    unchanged by tracing. The kernels' launches are the server's own
+    counts, read from its exposition after the served queries.
+    `device="cpu"` rehearses the phase without a card (no graphs, no
+    copies, and the plain kernels count no launches there)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.obs.trace import validate_chrome
+    from blaze_tpu_torch.ops import AggMode, FileRange, ParquetScanExec
+    from blaze_tpu_torch.plan.serde import task_to_proto
+    from blaze_tpu_torch.service import ServiceClient
+
+    work = os.path.join(REPO, "build", "chip_smoke_service")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    proc = None
+    try:
+        fact = os.path.join(work, "store_sales.parquet")
+        item, qty, price = write_store_sales(fact, rows, seed)
+        gpath = os.path.join(work, "store_sales_grouped.parquet")
+        g_exp = grouped_oracle(*write_store_sales(gpath, grouped_rows,
+                                                  seed))
+        brands = item_brands(rows, seed)
+        dim = os.path.join(work, "item.parquet")
+        pq.write_table(pa.table({"i_item": np.arange(ITEMS, dtype=np.int32),
+                                 "i_brand": brands}), dim)
+
+        def scan(p):
+            return ParquetScanExec([[FileRange(p)]])
+
+        def q6_blob():
+            return task_to_proto(q6_plan(scan(fact), True), 0)
+
+        blobs = {"q6": q6_blob(),
+                 "grouped": task_to_proto(
+                     grouped_plan(scan(gpath), AggMode.COMPLETE), 0),
+                 "join_agg": task_to_proto(
+                     join_agg_plan(scan(fact), scan(dim)), 0)}
+        checks = {
+            "q6": lambda t: check_q6(t.to_batches(), qty, price,
+                                     "service q6"),
+            "grouped": lambda t: check_grouped(t, g_exp, "service grouped"),
+            "join_agg": lambda t: check_join_agg(t, item, price, brands,
+                                                 "service join_agg"),
+        }
+        log_path = os.path.join(work, "serve.log")
+        proc, addr, start_s = start_server(["--max-concurrency", "2",
+                                            "--device", device], log_path)
+        walls = {}
+        with ServiceClient(*addr, timeout=600.0) as c:
+            # 1. four queries at once at mixed priorities: join_agg and
+            # grouped take both slots; q6 and a second grouped queue at
+            # one priority, the later submit with the earlier deadline;
+            # a priority-5 grouped queues and is cancelled there, a q6
+            # with a 50 ms deadline times out there
+            subs = [("join_agg", "join_agg", dict(priority=0)),
+                    ("grouped", "grouped", dict(priority=0)),
+                    ("q6", "q6", dict(priority=1, deadline_s=600.0)),
+                    ("grouped_2", "grouped", dict(priority=1,
+                                                  deadline_s=300.0,
+                                                  use_cache=False)),
+                    ("cancel_queued", "grouped", dict(priority=5,
+                                                      use_cache=False)),
+                    ("timed_out", "q6", dict(priority=0, deadline_s=0.05,
+                                             use_cache=False))]
+            t0 = {}
+            qid = {}
+            for i, (name, task, kw) in enumerate(subs):
+                t0[name] = time.perf_counter()
+                qid[name] = c.submit(blobs[task], **kw)["query_id"]
+                if i == 1:
+                    # both slots taken before the rest queue behind them
+                    for q in qid.values():
+                        while c.poll(q)["state"] in ("QUEUED", "ADMITTED"):
+                            time.sleep(0.002)
+            c.cancel(qid["cancel_queued"])
+            results = {}
+            for name, task, _ in subs[:4]:
+                got = c.fetch(qid[name])
+                walls[name] = time.perf_counter() - t0[name]
+                results[name] = pa.Table.from_batches(got)
+                checks[task](results[name])
+            ends = {n: c.poll(qid[n]) for n in qid}
+            if ends["cancel_queued"]["state"] != "CANCELLED":
+                raise AssertionError(f"service: queued cancel ended "
+                                     f"{ends['cancel_queued']}")
+            if ends["timed_out"]["state"] != "TIMED_OUT":
+                raise AssertionError(f"service: queued deadline ended "
+                                     f"{ends['timed_out']}")
+            order = [q for q in c.stats()["admission_order"]
+                     if q in qid.values()]
+            names = {v: k for k, v in qid.items()}
+            order = [names[q] for q in order]
+            if order[2:] != ["grouped_2", "q6"] or \
+                    set(order[:2]) != {"join_agg", "grouped"}:
+                raise AssertionError(f"service: admission order {order}")
+            # 2. q6 again, the same bytes: the result cache, no device
+            # work; then the plan rebuilt and serialized anew (the same
+            # bytes) hits the plan cache and decodes nothing
+            plan_hits = c.stats()["plan_cache"]["hits"]
+            t1 = time.perf_counter()
+            rep = c.submit(blobs["q6"])["query_id"]
+            again = c.fetch(rep)
+            hit_wall = time.perf_counter() - t1
+            st = c.poll(rep)
+            if st.get("cache_hits") != 1 or any(
+                    st[k] for k in ("dispatches", "graph_replays",
+                                    "launches", "h2d_copies",
+                                    "d2h_syncs")):
+                raise AssertionError(f"service: the repeat did device "
+                                     f"work: {st}")
+            blob2 = q6_blob()
+            if blob2 != blobs["q6"]:
+                raise AssertionError("service: q6 serialized twice "
+                                     "differs")
+            rep2 = c.submit(blob2)["query_id"]
+            c.fetch(rep2)
+            spans = {s["name"] for s in c.report_full(
+                rep2, include_spans=True).get("trace_spans") or ()}
+            plan_hits = c.stats()["plan_cache"]["hits"] - plan_hits
+            if plan_hits != 2 or "plan_decode" in spans:
+                raise AssertionError(f"service: plan cache hits "
+                                     f"{plan_hits}, spans {spans}")
+            # 3. the arena FETCH against the socket FETCH: the client
+            # mapped the leased segment (one handle served and released,
+            # no byte-path re-FETCH, which would be an sg serve)
+            before = c.stats()["arena"]
+            with ServiceClient(*addr, use_arena=True) as ca:
+                mapped = ca.fetch(qid["grouped"])
+            if ipc_bytes(mapped) != ipc_bytes(
+                    results["grouped"].to_batches()):
+                raise AssertionError("service: arena FETCH differs")
+            arena = c.stats()["arena"]
+            moved = {k: arena[k] - before[k]
+                     for k in ("handle_hits", "lease_releases",
+                               "sg_serves")}
+            if moved != {"handle_hits": 1, "lease_releases": 1,
+                         "sg_serves": 0} or arena["map_failures"] or \
+                    arena["lease_faults"]:
+                raise AssertionError(f"service: the arena FETCH did not "
+                                     f"map the segment: {before} -> "
+                                     f"{arena}")
+            # 4. a running grouped cancelled, then no graph lent
+            run = c.submit(blobs["grouped"], use_cache=False)["query_id"]
+            while c.poll(run)["state"] in ("QUEUED", "ADMITTED"):
+                time.sleep(0.002)
+            c.cancel(run)
+            deadline = time.perf_counter() + 120
+            while c.poll(run)["state"] == "RUNNING" and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.01)
+            if c.poll(run)["state"] != "CANCELLED":
+                raise AssertionError(f"service: running cancel ended "
+                                     f"{c.poll(run)}")
+            stats = c.stats()
+            if stats["graphs"]["lent"] != 0:
+                raise AssertionError(f"service: {stats['graphs']} graphs "
+                                     "still lent after the cancels")
+            # 7. no degrade, no retry; the exposition
+            if stats["queries"]["degraded_queries"] or \
+                    stats["queries"]["retried_queries"]:
+                raise AssertionError(f"service: {stats['queries']}")
+            statuses = {n: c.poll(q) for n, q in qid.items()}
+        # 6. the trace CLI on the first q6
+        doc_path = os.path.join(work, "q6.trace.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "blaze_tpu_torch", "trace", qid["q6"],
+             "--host", addr[0], "--port", str(addr[1]), "-o", doc_path],
+            capture_output=True, text=True, cwd=REPO, timeout=120,
+            env={**os.environ, "PYTHONPATH": REPO})
+        if r.returncode != 0:
+            raise AssertionError(f"service: trace CLI {r.returncode} "
+                                 f"{r.stderr[-1000:]}")
+        with open(doc_path) as f:
+            doc = json.load(f)
+        problems = validate_chrome(doc)
+        events = {e["name"] for e in doc["traceEvents"]}
+        want = {"query", "queue_wait", "attempt", "execute_partition",
+                "kernel_dispatch"} | ({"h2d"} if device == "cuda" else set())
+        if problems or not want <= events:
+            raise AssertionError(f"service: trace {problems}, missing "
+                                 f"{sorted(want - events)}")
+        with ServiceClient(*addr) as c:
+            text = c.metrics()
+        for fam in ('blaze_dispatch_total{kind="graph_replays"}'
+                    if device == "cuda" else "blaze_dispatch_total",
+                    "blaze_queries_total", "blaze_admission_events_total",
+                    "blaze_result_cache_events_total",
+                    "blaze_plan_cache_events_total", "blaze_arena_bytes"):
+            if fam not in text:
+                raise AssertionError(f"service: metrics lack {fam}")
+        kinds = metric_values(text, "blaze_dispatch_total", "kind")
+        launches = {k: int(kinds.get(v, 0))
+                    for k, v in SERVICE_KERNELS.items()}
+        for k in ("masked_stats", "compact_perm", "segment_reduce"):
+            if launches[k] <= 0 and device == "cuda":
+                raise AssertionError(f"service: {k} not launched")
+        stop_server(proc)
+        proc = None
+        tail = server_tail(log_path)
+        # 8. readbacks a batch, tracing off and on
+        syncs = syncs_traced_and_not(
+            torch, blobs, {"q6": rows, "grouped": grouped_rows}, device)
+        emit({"phase": "service", "rows": rows,
+              "grouped_rows": grouped_rows, "server_start_s": start_s,
+              "queries": {n: {"wall_s": walls.get(n),
+                              "queue_wait_s": s.get("queue_wait_s"),
+                              "execution_s": s.get("execution_s"),
+                              "state": s["state"],
+                              "priority": s["priority"],
+                              "graph_replays": s.get("graph_replays"),
+                              "launches": s.get("launches"),
+                              "h2d_copies": s.get("h2d_copies"),
+                              "d2h_syncs": s.get("d2h_syncs")}
+                          for n, s in statuses.items()},
+              "admission_order": order,
+              "cache_hit": {"wall_s": hit_wall,
+                            "execution_s": st.get("execution_s")},
+              "plan_cache_hits": plan_hits, "arena": arena,
+              "trace_events": len(doc["traceEvents"]),
+              "syncs_per_batch": syncs, "launches": launches,
+              "graphs_lent": 0, "server_tail": tail[-300:],
+              "seconds": time.perf_counter() - t_phase})
+        return {"service": {"launches": launches,
+                            "wall_s": walls["q6"]}}
+    finally:
+        if proc is not None:
+            stop_server(proc)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def time_tree(torch, tree: str, rows: int, grouped_rows: int):
     """The --compare timings of the checkout `tree`, whose
     blaze_tpu_torch this process imports."""
@@ -5725,6 +6102,8 @@ def main() -> int:
                                  args.seed, kernels))
         res.update(planner_phase(torch, args.rows, args.seed, kernels))
         res.update(cluster_phase(torch, args.rows, args.seed, kernels))
+        res.update(service_phase(torch, args.rows, args.grouped_rows,
+                                 args.seed))
 
     # 5. each kernel against its plain version at the launch shapes of
     # the paths that phase 3 did not check, then timed at the most
@@ -5792,7 +6171,8 @@ def main() -> int:
                                                    "dec_", "plan_",
                                                    "range_sort", "ref_",
                                                    "cluster_", "remote_",
-                                                   "shuffle_manager"))]
+                                                   "shuffle_manager",
+                                                   "service"))]
     for name, src, replaces, task, err in (
         ("masked_stats", "blaze_tpu_torch/csrc/stats.cu",
          "blaze_tpu/ops/kernels/stats_pallas.py:75", "q6", k1_err),

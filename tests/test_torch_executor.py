@@ -265,6 +265,10 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
     files = sorted((REPO / "blaze_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    # the serving tier's packages and the CLI are covered too
+    assert {"service", "obs", "zerocopy", "testing"} <= {
+        f.parent.name for f in files}
+    assert REPO / "blaze_tpu_torch" / "__main__.py" in files
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]

@@ -255,8 +255,11 @@ def test_service_protocol_gets_the_error_frame(gateway):
         head = s.recv(8, socket.MSG_WAITALL)
         (mlen,) = struct.unpack("<I", s.recv(4, socket.MSG_WAITALL))
         msg = s.recv(mlen, socket.MSG_WAITALL).decode()
+    # a gateway without a QueryService answers the service protocol
+    # with the JAX package's error frame (with one, service/wire.py
+    # serves it: tests/test_torch_service_wire.py)
     assert head == struct.pack("<Q", 0xFFFFFFFFFFFFFFFF)
-    assert "service protocol" in msg and "item 8" in msg
+    assert msg == "no query service attached"
 
 
 class _FakeSock:

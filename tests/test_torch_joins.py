@@ -233,19 +233,6 @@ def key_names(side):
 # running both packages
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """torch's CPU searchsorted wakes its thread pool for a few hundred
-    elements (tens of ms a call on this kind of host): the tests run
-    torch on one thread."""
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture
 def join_core(monkeypatch):
     """Set the join core of both packages for one test."""

@@ -63,7 +63,7 @@ from blaze_tpu_torch.runtime import dispatch
 from blaze_tpu_torch.runtime.executor import run_plan
 from blaze_tpu_torch.types import DataType, Field, Schema
 
-from torch_support import assert_arrow_equal, computed_once, jax_batch
+from torch_support import assert_arrow_equal, computed_in_parts, jax_batch
 
 CAP, ROWS = 256, 200
 KEY_TYPES = ["bool", "int8", "int16", "int32", "int64", "float32",
@@ -73,14 +73,6 @@ _DT = {"bool": DataType.bool_(), "int8": DataType.int8(),
        "int64": DataType.int64(), "float32": DataType.float32(),
        "float64": DataType.float64(), "date32": DataType.date32(),
        "timestamp": DataType.timestamp_us()}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _key(rng, kind):
@@ -156,23 +148,25 @@ def _numpy_order(keys):
 @pytest.fixture(scope="module")
 def jax_perms(tmp_path_factory):
     """{(case, core): JAX permutation} for both of its sort cores,
-    computed once a session for all xdist workers."""
-    return computed_once(tmp_path_factory, "sort-jax-perms", _jax_perms)
+    computed once a session for all xdist workers, a part a core."""
+    scatter, sort = computed_in_parts(
+        tmp_path_factory, "sort-jax-perms",
+        [lambda: _jax_perms("scatter"), lambda: _jax_perms("sort")])
+    return scatter | sort
 
 
-def _jax_perms():
+def _jax_perms(core):
     import os
 
     out = {}
     saved = os.environ.get("BLAZE_SORT_CORE")
     try:
-        for core in ("scatter", "sort"):
-            os.environ["BLAZE_SORT_CORE"] = core
-            for i, (name, spec) in enumerate(CASES):
-                keys = [(jnp.asarray(v), jnp.asarray(m), a, nf)
-                        for v, m, a, nf in _case_keys(i, spec)]
-                out[(name, core)] = np.asarray(
-                    jax_sort_indices(keys, ROWS, CAP))
+        os.environ["BLAZE_SORT_CORE"] = core
+        for i, (name, spec) in enumerate(CASES):
+            keys = [(jnp.asarray(v), jnp.asarray(m), a, nf)
+                    for v, m, a, nf in _case_keys(i, spec)]
+            out[(name, core)] = np.asarray(
+                jax_sort_indices(keys, ROWS, CAP))
     finally:
         if saved is None:
             os.environ.pop("BLAZE_SORT_CORE", None)

@@ -68,7 +68,7 @@ from blaze_tpu_torch.runtime.executor import (
 )
 from blaze_tpu_torch.types import DataType, Field, Schema
 
-from torch_support import computed_once, jax_batch
+from torch_support import computed_in_parts, jax_batch
 
 N, CAP = 300, 512
 CPU = ExecContext(device="cpu")
@@ -87,16 +87,6 @@ AGGS = [(k, s, fr) for k in ("sum", "min", "max", "count", "avg")
 FNS = [(k, s, off, None) for k, s, off in RANKING] + \
     [(k, s, 1, fr) for k, s, fr in AGGS]
 NAMES = ["p", "o", "vi", "vf", "vs", "rid"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """torch's CPU searchsorted wakes its thread pool for a few hundred
-    elements: the tests run torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pad(a, fill=0):
@@ -131,25 +121,47 @@ def _batches(cols, valid, schema=SCHEMA, n=N):
             jax_batch(schema, vals, vms, None, n))
 
 
-def _window(W, F, K, C, scan, fns=FNS, order_asc=True, nulls_first=False):
+def _window(W, F, K, C, scan, fns=FNS, order_asc=True, nulls_first=False,
+            first=0):
     return W(scan, partition_by=[C("p")],
              order_by=[K(C("o"), order_asc, nulls_first)],
-             functions=[F(k, None if s is None else C(s), f"f{i}", off, fr)
+             functions=[F(k, None if s is None else C(s), f"f{first + i}",
+                          off, fr)
                         for i, (k, s, off, fr) in enumerate(fns)])
+
+
+#: the JAX window over FNS is computed in this many parts (one window
+#: each over a slice of the functions), so the xdist workers compile
+#: them side by side
+JAX_PARTS = 6
 
 
 @pytest.fixture(scope="module")
 def main_run(tmp_path_factory):
     """Both packages' window over the 132 functions; the JAX result (a
-    15 s compile) is computed once a session for all xdist workers."""
+    13 s compile whole) is computed once a session for all xdist
+    workers, in JAX_PARTS windows over slices of the functions whose
+    passthrough columns must agree row for row."""
     cols, valid = _inputs()
     tb, jb = _batches(cols, valid)
     got = run_plan(_window(WindowExec, WindowFn, SortKey, Col,
                            MemoryScanExec([[tb]], SCHEMA)), CPU)
-    exp = computed_once(
-        tmp_path_factory, "window-main-run",
-        lambda: jax_run_plan(_window(JWindow, JFn, JKey, JCol,
-                                     J.MemoryScanExec([[jb]], jb.schema))))
+    cuts = [len(FNS) * p // JAX_PARTS for p in range(JAX_PARTS + 1)]
+
+    def part(lo, hi):
+        return lambda: jax_run_plan(_window(
+            JWindow, JFn, JKey, JCol, J.MemoryScanExec([[jb]], jb.schema),
+            fns=FNS[lo:hi], first=lo))
+
+    parts = computed_in_parts(tmp_path_factory, "window-main-run",
+                              [part(lo, hi)
+                               for lo, hi in zip(cuts, cuts[1:])])
+    for p in parts[1:]:
+        assert p.select(NAMES).equals(parts[0].select(NAMES))
+    exp = pa.table(
+        {n: parts[0].column(n) for n in NAMES}
+        | {n: p.column(n) for p in parts for n in p.column_names
+           if n not in NAMES})
     return cols, valid, got, exp
 
 

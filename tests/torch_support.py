@@ -1,10 +1,20 @@
 """Shared helpers for the PyTorch port's differential tests
 (tests/test_torch_*.py): Arrow equality with NaN equal to NaN, and
-identical batches for both packages built from numpy buffers."""
+identical batches for both packages built from numpy buffers.
+
+Importing it runs torch on one intra-op thread in this process: the
+port's tests run in several xdist workers at once, each of which
+imports every test file, and torch's default of a thread a core has
+each worker's CPU kernels contend with the other workers' for the
+same cores (and torch's CPU searchsorted wakes its pool for a few
+hundred elements, tens of ms a call)."""
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.types as pat
+import torch
+
+torch.set_num_threads(1)
 
 
 def assert_arrow_equal(a, b):
@@ -63,23 +73,51 @@ def computed_once(tmp_path_factory, name, compute):
     others wait for the lock and read it. For JAX references whose
     compile costs seconds, which every worker would otherwise repeat.
     Without xdist it is simply computed."""
-    import fcntl
     import os
-    import pickle
 
     if not os.environ.get("PYTEST_XDIST_WORKER"):
         return compute()
+    return _shared(tmp_path_factory, name, compute, block=True)[1]
+
+
+def _shared(tmp_path_factory, name, compute, block):
+    """(True, value) of computed_once; (False, None) at once when
+    `block` is false and another worker holds the lock."""
+    import fcntl
+    import pickle
+
     root = tmp_path_factory.getbasetemp().parent
     path = root / f"computed-once-{name}.pkl"
     with open(root / f"computed-once-{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | (0 if block else
+                                               fcntl.LOCK_NB))
+        except BlockingIOError:
+            return False, None
         if path.is_file():
-            return pickle.loads(path.read_bytes())
+            return True, pickle.loads(path.read_bytes())
         value = compute()
         tmp = path.with_suffix(".tmp")
         tmp.write_bytes(pickle.dumps(value))
         tmp.replace(path)
-        return value
+        return True, value
+
+
+def computed_in_parts(tmp_path_factory, name, computes):
+    """[compute() for compute in computes], each part computed once per
+    test session like computed_once; a worker first takes every part no
+    other worker is computing, then waits for the rest, so workers that
+    ask at the same moment compute the parts side by side instead of
+    waiting on one worker for all of them."""
+    import os
+
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return [compute() for compute in computes]
+    out = [_shared(tmp_path_factory, f"{name}-{i}", c, block=False)
+           for i, c in enumerate(computes)]
+    return [v if done else computed_once(tmp_path_factory, f"{name}-{i}",
+                                         computes[i])
+            for i, (done, v) in enumerate(out)]
 
 
 def built_once(tmp_path_factory, name, build):
